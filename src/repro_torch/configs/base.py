@@ -1,0 +1,125 @@
+"""Model config dataclasses, a copy of the JAX package's `configs/base.py`
+(the model part only; shapes, training and mesh configs arrive with the
+slices that use them).
+
+Every architecture the port serves gets a `ModelConfig` in its own module
+under `repro_torch.configs`; the registry in `__init__.py` exposes
+`get_config(arch)` and `smoke_config(arch)`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Model families
+# ---------------------------------------------------------------------------
+DENSE = "dense"
+MOE = "moe"
+SSM = "ssm"          # xLSTM-style recurrent
+HYBRID = "hybrid"    # parallel attention + SSM heads (hymba)
+ENCODER = "encoder"  # bidirectional, no decode (hubert)
+VLM = "vlm"          # early-fusion token VLM (chameleon)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int          # routed experts (logical, pre-padding)
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    d_ff_shared: int = 0      # total shared-expert ffn width
+    router_aux_weight: float = 0.01
+    # experts are padded up to a multiple of the EP shard count at build
+    # time; padded experts get -inf router logits.
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 16       # per-channel state (mamba) / head_dim (mLSTM)
+    conv_width: int = 4
+    expand: int = 2           # d_inner = expand * d_model
+    num_ssm_heads: int = 0    # hymba: number of mamba heads in parallel mix
+    slstm_every: int = 2      # xlstm: one sLSTM block per this many blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                   # 0 -> d_model // num_heads
+    norm: str = "rmsnorm"               # rmsnorm | layernorm | nonparam_ln
+    act: str = "swiglu"                 # swiglu | gelu
+    rope_theta: float = 10000.0
+    qk_norm: bool = False               # chameleon / qwen3
+    tie_embeddings: bool = False
+    causal: bool = True                 # False for encoder-only
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # attention pattern: full everywhere, or sliding window with a few
+    # global layers (hymba)
+    sliding_window: int = 0             # 0 -> full attention
+    global_attn_layers: Tuple[int, ...] = ()
+    meta_tokens: int = 0                # hymba learned prefix tokens
+    # modality frontend stub: if set, inputs are precomputed embeddings
+    # (batch, seq, d_model) instead of token ids
+    embedding_frontend: bool = False
+    dtype: str = "bfloat16"
+    # -- derived ------------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500k context without O(L) KV cache
+        attention per step over the full context?"""
+        return self.family in (SSM, HYBRID)
+
+    @property
+    def has_decode(self) -> bool:
+        return self.causal
+
+    def param_count(self) -> int:
+        """Approximate parameter count (used for MODEL_FLOPS=6ND)."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        hd = self.resolved_head_dim
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        if self.family in (DENSE, MOE, VLM, ENCODER):
+            per_layer += d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd)
+            per_layer += (self.num_heads * hd) * d
+        if self.family == HYBRID:
+            per_layer += d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd)
+            per_layer += (self.num_heads * hd) * d
+            di = self.ssm.expand * d
+            per_layer += 2 * d * di + di * d + di * (self.ssm.state_dim * 2 + 1)
+        if self.family == SSM:
+            # mLSTM/sLSTM projections (approx): qkv + gates + out
+            di = self.ssm.expand * d
+            per_layer += 2 * d * di + di * d + 3 * d * d
+        if self.moe is not None:
+            mult = 3 if self.act == "swiglu" else 2
+            per_layer += self.moe.num_experts * mult * d * self.moe.d_ff_expert
+            per_layer += self.moe.num_shared_experts and mult * d * self.moe.d_ff_shared
+            per_layer += d * self.moe.num_experts  # router
+        elif self.d_ff:
+            mult = 3 if self.act == "swiglu" else 2
+            per_layer += mult * d * self.d_ff
+        return emb + L * per_layer
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top_k + shared experts)."""
+        if self.moe is None:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        mult = 3 if self.act == "swiglu" else 2
+        full_experts = self.moe.num_experts * mult * d * self.moe.d_ff_expert
+        active_experts = self.moe.top_k * mult * d * self.moe.d_ff_expert
+        return self.param_count() - L * (full_experts - active_experts)

@@ -1,0 +1,76 @@
+"""Public model API, as in the JAX package's `models/model.py`:
+
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    logits, aux = model.apply(params, tokens)
+    last, cache, pos = model.prefill(params, tokens, cap)
+    logits, cache = model.decode(params, token, cache, pos)
+
+Parameters and caches are nested dicts of tensors on one device; compute
+runs where they lie. `init` and `init_cache` default to CUDA and raise
+when it is missing (pass device="cpu" for the CPU).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import param as P
+from repro_torch.models import transformer as T
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    spec: Any
+
+    # ---- parameters -------------------------------------------------------
+    def init(self, seed: int = 0, dtype=torch.float32, device="cuda"):
+        gen = torch.Generator(device=resolve_device(device))
+        gen.manual_seed(seed)
+        return P.init_params(self.spec, gen, dtype)
+
+    def num_params(self) -> int:
+        return P.param_count(self.spec)
+
+    # ---- compute ----------------------------------------------------------
+    def apply(self, params, inputs, *, compute_dtype=torch.bfloat16,
+              attn_impl: str = "auto"):
+        logits, aux, _ = T.forward(self.cfg, params, inputs,
+                                   compute_dtype=compute_dtype,
+                                   attn_impl=attn_impl)
+        return logits, aux
+
+    def prefill(self, params, inputs, cap: int, *,
+                compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                attn_impl: str = "auto"):
+        return T.prefill(self.cfg, params, inputs, cap,
+                         compute_dtype=compute_dtype,
+                         cache_dtype=cache_dtype, attn_impl=attn_impl)
+
+    def decode(self, params, token, cache, pos: int, *,
+               compute_dtype=torch.bfloat16, attn_impl: str = "auto"):
+        return T.decode_step(self.cfg, params, token, cache, pos,
+                             compute_dtype=compute_dtype,
+                             attn_impl=attn_impl)
+
+    # ---- cache ------------------------------------------------------------
+    def cache_spec(self, batch: int, cap: int):
+        return T.cache_spec(self.cfg, batch, cap)
+
+    def init_cache(self, batch: int, cap: int, dtype=torch.bfloat16,
+                   device="cuda"):
+        """Zeroed decode cache; bf16 by default like the JAX package's,
+        whatever the compute dtype."""
+        dev = resolve_device(device)
+        return P.tree_map(
+            lambda s: torch.zeros(s.shape, dtype=dtype, device=dev),
+            self.cache_spec(batch, cap))
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg=cfg, spec=T.build_spec(cfg))

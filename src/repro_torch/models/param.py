@@ -1,0 +1,77 @@
+"""Parameter spec trees.
+
+A model is described by a nested dict of `Spec` leaves, as in the JAX
+package's `models/param.py`. `init_params` materializes it from an
+explicit `torch.Generator` on the generator's device. The numbers differ
+from `jax.random` for the same seed; tests that compare the two packages
+bridge the JAX parameters instead (`models/convert.py`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, List, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """One parameter: its shape and init rule. (The JAX Spec also names a
+    logical sharding axis per dim; the port does not shard yet.)"""
+    shape: Tuple[int, ...]
+    init: str = "normal"              # normal | zeros | embed
+    scale: float = 1.0                # fan-in style scale multiplier
+
+
+def tree_map(fn: Callable, tree):
+    """Apply `fn` to every leaf of a tree of dicts and lists (leaves are
+    Specs or tensors)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> List[Any]:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _trunc_normal(shape, generator):
+    """Standard normal truncated at +-3 standard units (the JAX rule
+    truncates before scaling, so the bounds here are in standard units)."""
+    x = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return torch.nn.init.trunc_normal_(x, 0.0, 1.0, -3.0, 3.0,
+                                       generator=generator)
+
+
+def _init_leaf(spec: Spec, generator, dtype):
+    dev = generator.device
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=dev)
+    if spec.init == "normal":
+        # truncated-normal, fan-in scaled on the last contracting dim
+        fan_in = (spec.shape[0] if len(spec.shape) == 1
+                  else math.prod(spec.shape[:-1]))
+        std = spec.scale / max(1.0, math.sqrt(fan_in))
+        return (_trunc_normal(spec.shape, generator) * std).to(dtype)
+    if spec.init == "embed":
+        std = spec.scale * 0.02
+        return (_trunc_normal(spec.shape, generator) * std).to(dtype)
+    raise ValueError(spec.init)
+
+
+def init_params(spec_tree, generator: torch.Generator,
+                dtype=torch.float32):
+    """Materialize real parameters on `generator.device`. Deterministic
+    given the generator's seed."""
+    return tree_map(lambda s: _init_leaf(s, generator, dtype), spec_tree)
+
+
+def param_count(spec_tree) -> int:
+    return int(sum(math.prod(s.shape) for s in tree_leaves(spec_tree)))

@@ -1,0 +1,225 @@
+"""The port's dense model held to the JAX package at olmo smoke width.
+
+2 layers, d_model 64, vocabulary 64 (padded to 128, so the padded-
+vocabulary mask is exercised), as tests/conftest.py `tiny_config`. The
+JAX `Model.init` weights are bridged into the port
+(`repro_torch.models.convert`), so both packages run the same weights.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import smoke_config as jax_smoke_config  # noqa: E402
+from repro.models import layers as jL  # noqa: E402
+from repro.models.model import build_model as jax_build_model  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.models import layers as tL  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.param import tree_leaves  # noqa: E402
+
+VOCAB = 64
+# fp32 compute: the tolerance of tests/test_kernels.py
+FP32_TOL = 2e-4
+# bf16 compute: the two packages round to bf16 at different places (the
+# JAX attention rounds its scores and probabilities to bf16, the port's
+# attention keeps them in fp32). Observed error is about one bf16 ulp of
+# the largest logits (|logit| < 1, ulp 2^-8); 2e-2 allows five ulps.
+BF16_TOL = 2e-2
+# fp32 compute over a bf16 cache: JAX decode rounds its softmax
+# probabilities to the cache dtype before the PV product, the port keeps
+# them in fp32. Observed about 1.4e-3; with an fp32 cache the two agree
+# to FP32_TOL (test_decode_fp32_cache_matches_jax).
+BF16_CACHE_TOL = 5e-3
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = dataclasses.replace(jax_smoke_config("olmo-1b"), vocab_size=VOCAB)
+    tcfg = dataclasses.replace(smoke_config("olmo-1b"), vocab_size=VOCAB)
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(tcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    return jm, jp, tm, tp
+
+
+def _tokens(shape, seed=0):
+    return np.random.default_rng(seed).integers(0, VOCAB, size=shape)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def test_configs_match_jax_package():
+    from repro.configs import get_config as jax_get_config
+    asdict = dataclasses.asdict
+    assert asdict(get_config("olmo-1b")) == asdict(jax_get_config("olmo-1b"))
+    assert asdict(smoke_config("olmo-1b")) == \
+        asdict(jax_smoke_config("olmo-1b"))
+    full = get_config("olmo-1b")
+    assert (full.num_layers, full.d_model, full.num_heads,
+            full.num_kv_heads, full.resolved_head_dim, full.d_ff,
+            full.vocab_size) == (16, 2048, 16, 16, 128, 8192, 50304)
+
+
+def test_spec_tree_matches_jax(models):
+    jm, _, tm, tp = models
+    from repro.models.param import is_spec
+    jleaves = jax.tree.leaves(jm.spec, is_leaf=is_spec)
+    jshapes = sorted((s.shape, s.init, s.scale) for s in jleaves)
+    tshapes = sorted((s.shape, s.init, s.scale)
+                     for s in tree_leaves(tm.spec))
+    assert jshapes == tshapes
+    assert tm.num_params() == jm.num_params()
+    # the bridged tree carries every leaf of the spec at its shape
+    assert sorted(tuple(t.shape) for t in tree_leaves(tp)) == \
+        sorted(s.shape for s in jleaves)
+
+
+def test_init_params_is_seeded_and_fan_in_scaled(models):
+    _, _, tm, _ = models
+    a = tm.init(seed=3, device="cpu")
+    b = tm.init(seed=3, device="cpu")
+    c = tm.init(seed=4, device="cpu")
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert torch.equal(x, y)
+    assert not torch.equal(tree_leaves(a)[0], tree_leaves(c)[0])
+    wq = a["segments"][0]["attn"]["wq"]           # (L, d, H, hd)
+    std = 1.0 / np.sqrt(np.prod(wq.shape[:-1]))   # JAX fan-in rule
+    assert float(wq.abs().max()) <= 3.0 * std
+    assert 0.8 * std < float(wq.std()) < std
+    table = a["embed"]["table"]
+    assert 0.015 < float(table.std()) < 0.02      # truncated at 3 sigma
+
+
+def test_norm_and_rope_match_jax():
+    cfg, jcfg = smoke_config("olmo-1b"), jax_smoke_config("olmo-1b")
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 5, 64), np.float32) * 3 + 1
+    want = jL.apply_norm(jcfg, {}, jnp.asarray(x))
+    got = tL.apply_norm(cfg, {}, torch.from_numpy(x))
+    np.testing.assert_allclose(_np(got), _np(want), atol=FP32_TOL,
+                               rtol=FP32_TOL)
+    q = rng.standard_normal((2, 5, 4, 16), np.float32)
+    pos = np.broadcast_to(np.arange(5) + 7, (2, 5))
+    want = jL.apply_rope(jnp.asarray(q), jnp.asarray(pos), 10000.0)
+    got = tL.apply_rope(torch.from_numpy(q), torch.from_numpy(pos.copy()),
+                        10000.0)
+    np.testing.assert_allclose(_np(got), _np(want), atol=FP32_TOL,
+                               rtol=FP32_TOL)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", FP32_TOL),
+                                       ("bfloat16", BF16_TOL)])
+def test_apply_logits_match_jax(models, dtype, tol):
+    jm, jp, tm, tp = models
+    toks = _tokens((2, 12))
+    want, _ = jm.apply(jp, jnp.asarray(toks),
+                       compute_dtype=getattr(jnp, dtype))
+    got, aux = tm.apply(tp, torch.from_numpy(toks),
+                        compute_dtype=getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    assert got.shape == (2, 12, 128) and float(aux) == 0.0
+    # padded vocabulary entries are masked to NEG_INF in both
+    assert bool((got[..., VOCAB:].float() < -1e29).all())
+    np.testing.assert_allclose(_np(got)[..., :VOCAB],
+                               _np(want)[..., :VOCAB], atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", BF16_CACHE_TOL),
+                                       ("bfloat16", BF16_TOL)])
+def test_prefill_then_decode_match_jax(models, dtype, tol):
+    """prefill, then 4 decode steps, both with a bf16 cache."""
+    jm, jp, tm, tp = models
+    toks = _tokens((2, 9), seed=1)
+    cap = 16
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jl, jc, jpos = jm.prefill(jp, jnp.asarray(toks), cap, compute_dtype=jdt)
+    tl, tc, tpos = tm.prefill(tp, torch.from_numpy(toks), cap,
+                              compute_dtype=tdt)
+    assert tpos == jpos == 9
+    assert tc["segments"][0]["k"].dtype == torch.bfloat16
+    assert tc["segments"][0]["k"].shape == (2, 2, cap, 4, 16)
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=tol, rtol=0)
+    # the cache rows are the same values rounded to bf16: an input that
+    # differs by an fp32 rounding may land one bf16 ulp (2^-8 relative)
+    # away
+    for name in ("k", "v"):
+        np.testing.assert_allclose(_np(tc["segments"][0][name]),
+                                   _np(jc["segments"][0][name]),
+                                   atol=tol, rtol=2 ** -8)
+    tok = _tokens((2, 1), seed=2)
+    for step in range(4):
+        jl, jc = jm.decode(jp, jnp.asarray(tok), jc, jpos + step,
+                           compute_dtype=jdt)
+        tl, tc = tm.decode(tp, torch.from_numpy(tok), tc, tpos + step,
+                           compute_dtype=tdt)
+        np.testing.assert_allclose(_np(tl), _np(jl), atol=tol, rtol=0)
+        tok = np.array(jnp.argmax(jl[:, -1].astype(jnp.float32), -1))
+        tok = tok[:, None]
+
+
+def test_decode_fp32_cache_matches_jax(models):
+    """With an fp32 cache neither package rounds the softmax: prefill and
+    decode agree to the fp32 tolerance."""
+    jm, jp, tm, tp = models
+    toks = _tokens((2, 9), seed=3)
+    jl, jc, jpos = jm.prefill(jp, jnp.asarray(toks), 16,
+                              compute_dtype=jnp.float32,
+                              cache_dtype=jnp.float32)
+    tl, tc, tpos = tm.prefill(tp, torch.from_numpy(toks), 16,
+                              compute_dtype=torch.float32,
+                              cache_dtype=torch.float32)
+    tok = _tokens((2, 1), seed=4)
+    for step in range(3):
+        jl, jc = jm.decode(jp, jnp.asarray(tok), jc, jpos + step,
+                           compute_dtype=jnp.float32)
+        tl, tc = tm.decode(tp, torch.from_numpy(tok), tc, tpos + step,
+                           compute_dtype=torch.float32)
+        np.testing.assert_allclose(_np(tl), _np(jl), atol=FP32_TOL,
+                                   rtol=0)
+
+
+def test_init_cache_defaults_to_bf16(models):
+    _, _, tm, _ = models
+    cache = tm.init_cache(3, 10, device="cpu")
+    leaves = tree_leaves(cache)
+    assert [t.dtype for t in leaves] == [torch.bfloat16] * 2
+    assert leaves[0].shape == (2, 3, 10, 4, 16)
+    assert not any(bool(t.any()) for t in leaves)
+
+
+@pytest.mark.parametrize("change", [
+    dict(sliding_window=8), dict(meta_tokens=2), dict(family="moe"),
+    dict(norm="rmsnorm"), dict(act="gelu"), dict(qk_norm=True),
+    dict(tie_embeddings=False)], ids=lambda c: next(iter(c)))
+def test_unported_configs_raise(change):
+    """A config that uses anything olmo-1b does not is refused with a
+    pointer to the ROADMAP, never served wrongly."""
+    cfg = dataclasses.replace(smoke_config("olmo-1b"), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(cfg)
+
+
+def test_cuda_entry_points_raise_without_cuda(monkeypatch):
+    """Entry points run on CUDA unless the CPU is asked for; without CUDA
+    they raise instead of falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tm = build_model(smoke_config("olmo-1b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tm.init(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tm.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_numpy({"w": np.zeros(3, np.float32)})
