@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the ECCO reproduction.
 
 The JAX package `repro` is the reference; this package mirrors its layout
-module by module (`configs`, `kernels`, `models`, `serve`, `launch`) and
+module by module (`configs`, `kernels`, `models`, `serve`, `launch`,
+`core`, `data`) and
 never imports it. Kernels that the JAX package wrote in Pallas for the
 TPU are hand-written CUDA kernels for Hopper (`csrc/`), built at first use
 and bound with ctypes (`kernels/_build.py`).
