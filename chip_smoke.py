@@ -9,19 +9,28 @@ Phases, in order; the script exits non-zero at the first failure:
 2. Build every CUDA kernel of the port from this checkout (one nvcc per
    source, all started together) and print the build seconds and the
    compiler's register / spill report.
-3. Hold each kernel against its plain PyTorch version on the card: the
-   tests/test_kernels.py sweep plus the serving shapes (bf16 prefill
-   (1, 512, 16, 16, 128) causal; decode S=1 over a strided prefix of a
-   (4, 1024, 16, 128) bf16 cache). Tolerance fp32 2e-4, bf16 2e-2.
-4. Serve olmo-1b at full width through `repro_torch.launch.serve.main`
-   (8 requests, 4 slots, 512-token prompts, 32 new tokens, random weights
-   from seed 0). Launch counters are set to 0 just before and read just
-   after; each layer's attention must have gone through the kernel once
-   per prefill and once per decode call.
-   Then a short torch.profiler window over one prefill and a few decode
-   ticks: device busy share and the kernels that take most device time.
+3. Hold each kernel against its plain PyTorch version on the card: for
+   flash_attention the tests/test_kernels.py sweep plus the serving shapes
+   of olmo-1b (bf16 prefill (1, 512, 16, 16, 128) causal; decode S=1 over
+   a strided prefix of a (4, 1024, 16, 128) bf16 cache) and of hymba-1.5b
+   (GQA 25/5 at head_dim 64: prefill (1, 1152) causal; decode over a
+   strided prefix of a (4, 1184, 5, 64) cache); for ssd_scan the six
+   cases of tests/test_kernels.py and hymba's prefill shape (1, 1152, 50,
+   64, N 16) at chunks 64 and 128, final state included. Tolerance fp32
+   2e-4, bf16 2e-2.
+4. Serve olmo-1b, then hymba-1.5b, at full width through
+   `repro_torch.launch.serve.main` (8 requests, 4 slots, 32 new tokens,
+   random weights from seed 0; olmo 512-token prompts, hymba 1024-token
+   prompts, so with its 128 meta tokens the windowed layers' ring has
+   wrapped at prefill). Launch counters are set to 0 just before each run
+   and read just after: every global-attention layer must have gone
+   through flash_attention once per prefill and once per decode call, and
+   every hymba layer's Mamba heads through ssd_scan once per prefill.
+   Then for each a short torch.profiler window over one prefill and a few
+   decode ticks: device busy share and the kernels that take most device
+   time; for hymba also the device time of the plain windowed attention.
 5. Full-width prefill last-token logits, kernel path vs plain path, same
-   weights, bf16 compute.
+   weights, bf16 compute, for both models; for hymba also fp32 compute.
 6. Time each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls) at the
    serving shapes, with CUDA events after warm-up, rotating input buffers
@@ -29,6 +38,8 @@ Phases, in order; the script exits non-zero at the first failure:
    from its bytes and operations and the data-sheet peaks of the card.
 7. One `{"kernels": [...]}` JSON line, the nvidia-smi line again, and as
    the last line `{"ok": true, "device": {...}}`.
+
+Every phase prints its seconds (`[phase]`).
 
 It needs one CUDA card and exits non-zero without one, and in a directory
 that does not hold the repository's `src/`.
@@ -73,26 +84,40 @@ from repro_torch.kernels.fleet_drift import fleet_drift  # noqa: E402
 from repro_torch.kernels.pairwise_js import SOURCE as PJ_SOURCE  # noqa: E402
 from repro_torch.kernels.pairwise_js import pairwise_js  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
-                                     fleet_drift_ref, pairwise_js_ref)
+                                     fleet_drift_ref, pairwise_js_ref,
+                                     ssd_chunked, ssd_recurrent)
+from repro_torch.kernels.ssd_scan import SOURCE as SSD_SOURCE  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.param import tree_map  # noqa: E402
+from repro_torch.models.transformer import layer_plan  # noqa: E402
 
 DEV = torch.device("cuda")
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # full-width prefill logits, kernel path vs plain path, bf16 compute. The
-# two paths round each attention output to bf16 identically except where
+# two paths round each kernel's output to bf16 identically except where
 # their fp32 sums straddle a rounding boundary; such one-ulp flips enter
-# the bf16 residual stream and propagate through 16 layers. 0.1 is about
+# the bf16 residual stream and propagate through the layers. 0.1 is about
 # 13 bf16 ulps at |logit| in [1, 2).
 LOGIT_TOL = 0.1
 
-ARCH = "olmo-1b"
-SERVE_ARGS = ["--arch", ARCH, "--full", "--requests", "8", "--num-slots",
-              "4", "--prompt-len", "512", "--max-new", "32", "--capacity",
-              "1024", "--seed", "0"]
-PROMPT, MAX_NEW, SLOTS, CAP = 512, 32, 4, 1024
+# the two serving paths: olmo-1b (dense) and hymba-1.5b (hybrid, 128 meta
+# tokens, window 1024): 8 requests, 4 slots, 32 new tokens each
+ARCH, HYMBA = "olmo-1b", "hymba-1.5b"
+REQUESTS, SLOTS, MAX_NEW = 8, 4, 32
+SERVING = {ARCH: dict(prompt=512, capacity=1024),
+           HYMBA: dict(prompt=1024, capacity=1056)}
+PROMPT, CAP = SERVING[ARCH]["prompt"], SERVING[ARCH]["capacity"]
 DECODE_T = PROMPT + MAX_NEW - 1      # longest cache prefix a decode reads
+# hymba: prefill sequence (prompt + meta), pool capacity (+ meta), the
+# longest cache prefix a decode reads, and apply_mamba's chunk
+HY_META = get_config(HYMBA).meta_tokens
+HY_S = SERVING[HYMBA]["prompt"] + HY_META
+HY_CAP = SERVING[HYMBA]["capacity"] + HY_META
+HY_DECODE_T = HY_S + MAX_NEW - 1
+SSD_CHUNK = 64
 
 # data-sheet peaks (dense): bytes/s of device memory, FLOP/s of bf16
 # tensor cores and of fp32 outside them; matched against nvidia-smi's name
@@ -107,9 +132,10 @@ PEAKS = [  # (name fragment, bytes/s, bf16 FLOP/s, fp32 FLOP/s)
 KERNELS = [("flash_attention", FA_SOURCE,
             "src/repro/kernels/flash_attention.py:107"),
            ("fleet_drift", FD_SOURCE, "src/repro/kernels/fleet_drift.py:86"),
-           ("pairwise_js", PJ_SOURCE, "src/repro/kernels/pairwise_js.py:54")]
+           ("pairwise_js", PJ_SOURCE, "src/repro/kernels/pairwise_js.py:54"),
+           ("ssd_scan", SSD_SOURCE, "src/repro/kernels/ssd_scan.py:80")]
 # kernels that no single PyTorch call computes: their library time is null
-NO_LIBRARY_CALL = ("fleet_drift", "pairwise_js")
+NO_LIBRARY_CALL = ("fleet_drift", "pairwise_js", "ssd_scan")
 
 # drift plane: 100,000 streams, each window 8 sequences x 32 tokens (the
 # controller's defaults), 64 buckets over the fleets' 64-token vocabulary,
@@ -175,8 +201,9 @@ def _check(name, got, want, tol, rtol=None):
     err = float((g - w).abs().max()) if g.numel() else 0.0
     ok = bool(torch.isfinite(g).all()) and bool(
         ((g - w).abs() <= tol + rtol * w.abs()).all())
-    print(f"[check] {name}: max_abs_err={err:.3e} atol={tol:g} "
-          f"rtol={rtol:g} {'ok' if ok else 'FAIL'}")
+    top = float(w.abs().max()) if w.numel() else 0.0
+    print(f"[check] {name}: max_abs_err={err:.3e} (max |plain| {top:.3g}) "
+          f"atol={tol:g} rtol={rtol:g} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with plain version")
     return err
@@ -224,7 +251,73 @@ def check_attention():
                      TOL[qdt])
         if qdt == bf16:
             serving.append(err)
+    # hymba's global layers: GQA group 5 at head_dim 64, S + meta = 1152
+    q = _randn((1, HY_S, 25, 64), bf16, gen)
+    k, v = (_randn((1, HY_S, 5, 64), bf16, gen) for _ in range(2))
+    serving.append(_check(
+        f"hymba prefill bf16 q (1,{HY_S},25,64) k,v (1,{HY_S},5,64) causal",
+        flash_attention(q, k, v), attention_ref(q, k, v), TOL[bf16]))
+    ck, cv = (_randn((SLOTS, HY_CAP, 5, 64), bf16, gen) for _ in range(2))
+    q = _randn((SLOTS, 1, 25, 64), bf16, gen)
+    kp, vp = ck[:, :HY_DECODE_T], cv[:, :HY_DECODE_T]
+    assert not kp.is_contiguous()
+    serving.append(_check(
+        f"hymba decode q (4,1,25,64) over bf16 cache prefix "
+        f"(4,{HY_DECODE_T}/{HY_CAP},5,64)",
+        flash_attention(q, kp, vp), attention_ref(q, kp, vp), TOL[bf16]))
     return max(serving)
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, gen):
+    """x, dt (softplus of a normal, rounded to `dtype` as the JAX sweep
+    makes it, handed over in fp32), A = -exp(0.3 z), Bm and Cm as the two
+    halves of one (B, S, 2N) projection (strided views, as apply_mamba
+    passes them), D = 1 + 0.1 z."""
+    x = _randn((B, S, H, P), dtype, gen)
+    dt = F.softplus(_randn((B, S, H), torch.float32, gen)).to(dtype).float()
+    A = -torch.exp(0.3 * _randn((H,), torch.float32, gen))
+    Bm, Cm = _randn((B, S, 2 * N), dtype, gen).chunk(2, dim=-1)
+    D = 1.0 + 0.1 * _randn((H,), torch.float32, gen)
+    return x, dt, A, Bm, Cm, D
+
+
+def check_ssd():
+    """ssd_scan against its plain version `ssd_chunked`, output and final
+    state: the six cases of tests/test_kernels.py::test_ssd_kernel_sweep,
+    then hymba's prefill shape at apply_mamba's chunk (64) and the Pallas
+    kernel's default (128). At hymba's shape in fp32 also against the
+    token-by-token oracle. Returns the largest error at hymba's shape and
+    chunk, bf16."""
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, P, N, chunk in [(1, 64, 2, 32, 16, 16),
+                                     (2, 80, 1, 64, 8, 32),
+                                     (1, 32, 4, 16, 32, 32)]:
+            args = _ssd_inputs(B, S, H, P, N, dtype, gen)
+            y, st = ssd_scan(*args, chunk=chunk, return_state=True)
+            wy, wst = ssd_chunked(*args, chunk=chunk, return_state=True)
+            name = (f"ssd_scan sweep {str(dtype)[6:]} B{B} S{S} H{H} P{P} "
+                    f"N{N} chunk{chunk}")
+            _check(f"{name} y", y, wy, TOL[dtype])
+            _check(f"{name} state", st, wst, TOL[dtype])
+    shape = (1, HY_S, 50, 64, 16)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _ssd_inputs(*shape, dtype, gen)
+        for chunk in (SSD_CHUNK, 128):
+            y, st = ssd_scan(*args, chunk=chunk, return_state=True)
+            wy, wst = ssd_chunked(*args, chunk=chunk, return_state=True)
+            name = f"ssd_scan hymba {str(dtype)[6:]} {shape} chunk{chunk}"
+            errs[dtype, chunk] = max(_check(f"{name} y", y, wy, TOL[dtype]),
+                                     _check(f"{name} state", st, wst,
+                                            TOL[dtype]))
+        if dtype == torch.float32:
+            ry, rst = ssd_recurrent(*args, return_state=True)
+            _check(f"ssd_scan hymba fp32 {shape} chunk{SSD_CHUNK} y vs "
+                   f"token-by-token oracle", y, ry, TOL[dtype])
+            _check(f"ssd_scan hymba fp32 {shape} state vs oracle", st, rst,
+                   TOL[dtype])
+    return errs[torch.bfloat16, SSD_CHUNK]
 
 
 def _check_drift(name, toks, ref, buckets, vocab):
@@ -330,35 +423,55 @@ def check_pairwise_js(cap):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve olmo-1b at full width
+# phase 4: serve olmo-1b and hymba-1.5b at full width
 # ---------------------------------------------------------------------------
-def serve_full_width():
-    cfg = get_config(ARCH)
+def serve_args(arch):
+    sv = SERVING[arch]
+    return ["--arch", arch, "--full", "--requests", str(REQUESTS),
+            "--num-slots", str(SLOTS), "--prompt-len", str(sv["prompt"]),
+            "--max-new", str(MAX_NEW), "--capacity", str(sv["capacity"]),
+            "--seed", "0"]
+
+
+def expected_launches(cfg, prefills, decode_calls):
+    """flash_attention: every global-attention layer once per prefill and
+    once per decode call (windowed layers attend in plain PyTorch);
+    ssd_scan: every hybrid layer's Mamba heads once per prefill (decode
+    steps the state in plain PyTorch)."""
+    global_layers = sum(s.count for s in layer_plan(cfg) if s.window == 0)
+    ssd_layers = cfg.num_layers if cfg.family == "hybrid" else 0
+    return {"flash_attention": global_layers * (prefills + decode_calls),
+            "ssd_scan": ssd_layers * prefills}
+
+
+def serve_full_width(arch):
+    cfg = get_config(arch)
     flash_attention.launches = 0
-    report = serve.main(SERVE_ARGS)
+    ssd_scan.launches = 0
+    report = serve.main(serve_args(arch))
     torch.cuda.synchronize()
-    launches = {"flash_attention": flash_attention.launches}
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_scan": ssd_scan.launches}
     out = report["outputs"]
-    assert len(out) == 8, sorted(out)
+    assert len(out) == REQUESTS, sorted(out)
     for rid, toks in out.items():
         assert len(toks) == MAX_NEW, (rid, len(toks))
         assert all(0 <= t < cfg.vocab_size for t in toks), rid
     prefills = len(report["prefill_s"])
-    want = cfg.num_layers * (prefills + report["decode_calls"])
-    print(f"[serve] flash_attention launches={launches['flash_attention']} "
-          f"(prefills={prefills}, decode calls={report['decode_calls']}, "
-          f"layers={cfg.num_layers}: expected {want})")
-    assert launches["flash_attention"] == want, launches
+    want = expected_launches(cfg, prefills, report["decode_calls"])
+    print(f"[serve] {arch}: launches {launches} (prefills={prefills}, "
+          f"decode calls={report['decode_calls']}: expected {want})")
+    assert launches == want, (launches, want)
     n_tok = sum(len(v) for v in out.values())
     tick_ms = sorted(1e3 * t for t in report["tick_s"])
     pre_ms = sorted(1e3 * t for t in report["prefill_s"])
-    print(f"[serve] prefill ms (512 tokens): median={np.median(pre_ms):.3f} "
-          f"min={pre_ms[0]:.3f} max={pre_ms[-1]:.3f} (first includes "
-          f"warm-up)")
-    print(f"[serve] decode ms per tick (4 slots): "
+    print(f"[serve] {arch}: prefill ms ({SERVING[arch]['prompt']} tokens): "
+          f"median={np.median(pre_ms):.3f} min={pre_ms[0]:.3f} "
+          f"max={pre_ms[-1]:.3f} (first includes warm-up)")
+    print(f"[serve] {arch}: decode ms per tick ({SLOTS} slots): "
           f"median={np.median(tick_ms):.3f} min={tick_ms[0]:.3f} "
           f"max={tick_ms[-1]:.3f} over {len(tick_ms)} ticks")
-    print(f"[serve] {n_tok} tokens in {report['seconds']:.3f}s: "
+    print(f"[serve] {arch}: {n_tok} tokens in {report['seconds']:.3f}s: "
           f"{n_tok / report['seconds']:.1f} tokens/s end to end")
     return launches
 
@@ -376,19 +489,20 @@ def _device_busy_ms(prof):
     return busy / 1e3, len(spans)
 
 
-def profile_serving():
+def profile_serving(arch):
     """Where a steady decode tick and a prefill spend their time: device
     busy share under torch.profiler (CUDA activity only) and the kernels
     that take most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.kvcache import ServeLoop
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    prompt, cap = SERVING[arch]["prompt"], SERVING[arch]["capacity"]
     model = build_model(cfg)
     loop = ServeLoop(model, model.init(seed=0, device=DEV),
-                     num_slots=SLOTS, capacity=CAP, max_new=MAX_NEW)
+                     num_slots=SLOTS, capacity=cap, max_new=MAX_NEW)
     rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, cfg.vocab_size, size=PROMPT)
+    prompts = [rng.integers(0, cfg.vocab_size, size=prompt)
                for _ in range(SLOTS + 1)]
     for i in range(SLOTS - 1):
         loop.submit(f"p{i}", prompts[i])
@@ -398,7 +512,8 @@ def profile_serving():
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         loop.submit("p_last", prompts[-1])
-        runs["prefill (1 x 512 tokens)"] = (prof, time.perf_counter() - t0)
+        runs[f"prefill (1 x {prompt} tokens)"] = (prof,
+                                                   time.perf_counter() - t0)
     ticks = 4
     with profile(activities=[ProfilerActivity.CUDA]) as prof2:
         t0 = time.perf_counter()
@@ -411,42 +526,82 @@ def profile_serving():
         busy, kernels = _device_busy_ms(pr)
         wall_ms = 1e3 * wall
         if kernels == 0:
-            print(f"[profile] {name}: the profiler saw no device time; "
-                  f"idle share not measured")
+            print(f"[profile] {arch} {name}: the profiler saw no device "
+                  f"time; idle share not measured")
             continue
-        print(f"[profile] {name}: wall {wall_ms:.3f} ms, device busy "
+        print(f"[profile] {arch} {name}: wall {wall_ms:.3f} ms, device busy "
               f"{busy / n:.3f} ms, idle share {1 - busy / n / wall_ms:.3f} "
               f"({kernels // n} kernels per call)")
         top = sorted(pr.key_averages(), key=lambda e: -e.device_time_total)
         for e in top[:6]:
             print(f"[profile]   {e.device_time_total / 1e3 / n:8.3f} ms "
                   f"x{e.count // n:<4} {e.key[:90]}")
+        ssd = [e for e in pr.key_averages() if "ssd_scan_kernel" in e.key]
+        if ssd:
+            print(f"[profile]   ssd_scan_kernel: "
+                  f"{sum(e.device_time_total for e in ssd) / 1e3 / n:.3f} ms "
+                  f"of the device busy {busy / n:.3f} ms")
+    if cfg.family == "hybrid":
+        profile_windowed_attention(cfg, loop.params)
+
+
+def profile_windowed_attention(cfg, params):
+    """Device time (CUDA events) of the plain windowed attention at
+    hymba's prefill shape: one layer's call, and the prefill's windowed
+    layers together."""
+    seg = next(i for i, s in enumerate(layer_plan(cfg)) if s.window)
+    p = {k: v[0] for k, v in params["segments"][seg]["attn"].items()}
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    x = _randn((1, HY_S, cfg.d_model), torch.bfloat16, gen)
+    pos = torch.arange(HY_S, device=DEV)[None]
+
+    def call():
+        return L.attention_windowed(cfg, p, x, pos, window=cfg.sliding_window,
+                                    meta=cfg.meta_tokens)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = _time_ms(lambda: call(), [()], iters=10, warmup=2)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    n = sum(s.count for s in layer_plan(cfg) if s.window)
+    print(f"[profile] {cfg.name} plain attention_windowed at (1, {HY_S}, "
+          f"{cfg.d_model}) bf16: {ms:.3f} ms per layer call (CUDA events), "
+          f"{n} windowed layers = {n * ms:.3f} ms per prefill; peak "
+          f"{peak:.0f} MiB of temporaries per call")
 
 
 # ---------------------------------------------------------------------------
 # phase 5: full-width logits, kernel path vs plain path
 # ---------------------------------------------------------------------------
-def compare_logits():
-    model = build_model(get_config(ARCH))
-    params = tree_map(lambda t: t.to(torch.bfloat16),
-                      model.init(seed=0, device=DEV))
+def compare_logits(arch, dtype=torch.bfloat16):
+    """Full-width prefill last-token logits, kernel path vs plain path, on
+    the same weights at compute `dtype`; within LOGIT_TOL."""
+    model = build_model(get_config(arch))
+    cfg = model.cfg
+    params = tree_map(lambda t: t.to(dtype), model.init(seed=0, device=DEV))
+    prompt, cap = SERVING[arch]["prompt"], SERVING[arch]["capacity"]
     rng = np.random.default_rng(1)
-    x = torch.as_tensor(rng.integers(0, model.cfg.vocab_size,
-                                     size=(1, PROMPT)), device=DEV)
-    before = flash_attention.launches
-    got, _, _ = model.prefill(params, x, CAP, compute_dtype=torch.bfloat16)
-    assert flash_attention.launches == before + model.cfg.num_layers
-    want, _, _ = model.prefill(params, x, CAP, compute_dtype=torch.bfloat16,
-                               attn_impl="ref")
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, prompt)),
+                        device=DEV)
+    cap += cfg.meta_tokens
+    flash_attention.launches = 0
+    ssd_scan.launches = 0
+    got, _, _ = model.prefill(params, x, cap, compute_dtype=dtype)
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_scan": ssd_scan.launches}
+    assert launches == expected_launches(cfg, 1, 0), launches
+    want, _, _ = model.prefill(params, x, cap, compute_dtype=dtype,
+                               kernel_impl="ref")
     torch.cuda.synchronize()
-    V = model.cfg.vocab_size
+    V = cfg.vocab_size
     g, w = got[:, :V].float(), want[:, :V].float()
     assert bool(torch.isfinite(g).all()), "non-finite logits"
     err = float((g - w).abs().max())
     same = int(g.argmax()) == int(w.argmax())
-    print(f"[logits] full-width prefill last-token logits, kernel vs plain: "
-          f"max_abs_err={err:.4e} (|logit| max {float(w.abs().max()):.3f}) "
-          f"tol={LOGIT_TOL} argmax_equal={same}")
+    print(f"[logits] {arch} full-width prefill last-token logits, kernel vs "
+          f"plain, {str(dtype)[6:]} compute: max_abs_err={err:.4e} (|logit| "
+          f"max {float(w.abs().max()):.3f}) tol={LOGIT_TOL} "
+          f"argmax_equal={same}")
     assert err <= LOGIT_TOL, err
     return err
 
@@ -850,9 +1005,84 @@ def time_attention(pk):
             q, k, v), sdpa_sets),
         bound=_bound(nbytes, flops, bf16, pk))
 
+    # hymba's global layers: H 25 over K 5 at head_dim 64. SDPA, the
+    # yardstick, gets k and v repeated to 25 heads beforehand.
+    H, K, hd = 25, 5, 64
+
+    def sdpa(sets_, **kw):
+        return [(q.transpose(1, 2).contiguous(),
+                 k.repeat_interleave(H // K, 2).transpose(1, 2).contiguous(),
+                 v.repeat_interleave(H // K, 2).transpose(1, 2).contiguous())
+                for q, k, v in sets_]
+
+    S = HY_S
+    sets = [(_randn((1, S, H, hd), bf16, gen), _randn((1, S, K, hd), bf16, gen),
+             _randn((1, S, K, hd), bf16, gen)) for _ in range(8)]
+    pairs = S * (S + 1) // 2
+    rows["hymba_prefill"] = dict(
+        shape=f"q (1,{S},25,64), k,v (1,{S},5,64) bf16 causal",
+        ms=_time_ms(lambda q, k, v: flash_attention(q, k, v), sets),
+        device_ms=_device_ms(lambda q, k, v: flash_attention(q, k, v), sets,
+                             "attn_fwd_kernel"),
+        plain_ms=_time_ms(lambda q, k, v: attention_ref(q, k, v), sets),
+        library_ms=_time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), sdpa(sets)),
+        bound=_bound(2 * S * (H + K) * hd * el, 4 * H * pairs * hd, bf16,
+                     pk))
+    T = HY_DECODE_T
+    caches = [(_randn((SLOTS, 1, H, hd), bf16, gen),
+               _randn((SLOTS, HY_CAP, K, hd), bf16, gen),
+               _randn((SLOTS, HY_CAP, K, hd), bf16, gen)) for _ in range(6)]
+    sets = [(q, k[:, :T], v[:, :T]) for q, k, v in caches]
+    rows["hymba_decode"] = dict(
+        shape=f"q (4,1,25,64) over k,v prefix (4,{T}/{HY_CAP},5,64) bf16",
+        ms=_time_ms(lambda q, k, v: flash_attention(q, k, v), sets),
+        device_ms=_device_ms(lambda q, k, v: flash_attention(q, k, v), sets,
+                             "attn_fwd_kernel"),
+        plain_ms=_time_ms(lambda q, k, v: attention_ref(q, k, v), sets),
+        library_ms=_time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v), sdpa(sets)),
+        bound=_bound((2 * SLOTS * H * hd + 2 * SLOTS * T * K * hd) * el,
+                     4 * SLOTS * H * T * hd, bf16, pk))
+
     for name, r in rows.items():
         _print_time(f"flash_attention {name}", r)
     return rows
+
+
+def time_ssd(pk):
+    """ssd_scan at hymba's prefill shape, bf16, apply_mamba's chunk, final
+    state out, rotating 10 input sets (77 MB of x, past L2). Bytes: x, dt,
+    B, C, A, D read once, y and the state written once. Operations, the
+    least this function needs: per chunk of Q steps C_i . B_j over the
+    causal triangle T = Q (Q + 1) / 2 once (the heads share B and C), and
+    per head W x over the triangle, C . state and the state update (Q N P
+    multiply-adds each): 2 nc (T N + H (T P + 2 Q N P)), an exponential
+    counted as nothing."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    B, S, H, P, N = 1, HY_S, 50, 64, 16
+    Q = SSD_CHUNK
+    sets = [_ssd_inputs(B, S, H, P, N, bf16, gen) for _ in range(10)]
+    nc, T = -(-S // Q), Q * (Q + 1) // 2
+    nbytes = (2 * B * S * H * P * 2 + 4 * B * S * H + 2 * B * S * N * 2
+              + 8 * H + 4 * B * H * P * N)
+    flops = 2 * B * nc * (T * N + H * (T * P + 2 * Q * N * P))
+
+    def kern(*a):
+        return ssd_scan(*a, chunk=Q, return_state=True)
+
+    def plain(*a):
+        return ssd_chunked(*a, chunk=Q, return_state=True)
+
+    r = dict(shape=f"x ({B},{S},{H},{P}) bf16, N {N}, chunk {Q}, state out",
+             ms=_time_ms(kern, sets),
+             device_ms=_device_ms(kern, sets, "ssd_scan_kernel"),
+             plain_ms=_time_ms(plain, sets, iters=10),
+             library_ms=None,
+             bound=_bound(nbytes, flops, torch.float32, pk))
+    _print_time("ssd_scan", r)
+    return r
 
 
 def time_fleet_drift(pk, windows, refs):
@@ -937,6 +1167,13 @@ def _entry(name, source, replaces, launches, err, row, **extra):
     return entry
 
 
+def phase(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main():
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
@@ -948,21 +1185,32 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    build_all()
+    phase("build", build_all)
     cap = index_capacity(JOINERS)
-    err = {"flash_attention": check_attention()}
-    err["fleet_drift"] = check_fleet_drift()
-    err["pairwise_js"] = check_pairwise_js(cap)
-    launches = serve_full_width()
-    profile_serving()
-    compare_logits()
-    launches["fleet_drift"], split, windows, refs = drift_plane()
-    storm = grouping_storm()
+    err = {"flash_attention": phase("check flash_attention",
+                                    check_attention)}
+    err["ssd_scan"] = phase("check ssd_scan", check_ssd)
+    err["fleet_drift"] = phase("check fleet_drift", check_fleet_drift)
+    err["pairwise_js"] = phase("check pairwise_js", check_pairwise_js, cap)
+    launches = phase(f"serve {ARCH}", serve_full_width, ARCH)
+    phase(f"profile {ARCH}", profile_serving, ARCH)
+    phase(f"logits {ARCH}", compare_logits, ARCH)
+    hymba = phase(f"serve {HYMBA}", serve_full_width, HYMBA)
+    launches["ssd_scan"] = hymba["ssd_scan"]
+    phase(f"profile {HYMBA}", profile_serving, HYMBA)
+    phase(f"logits {HYMBA}", compare_logits, HYMBA)
+    # the same weights in fp32: how much of the bf16 difference is rounding
+    phase(f"logits {HYMBA} fp32", compare_logits, HYMBA, torch.float32)
+    torch.cuda.empty_cache()
+    launches["fleet_drift"], split, windows, refs = phase("drift plane",
+                                                          drift_plane)
+    storm = phase("grouping storm", grouping_storm)
     launches["pairwise_js"] = storm["launches"]
     assert storm["capacity"] == cap, (storm["capacity"], cap)
-    att = time_attention(pk)
-    fd = time_fleet_drift(pk, windows, refs)
-    pj = time_pairwise_js(pk, cap)
+    att = phase("time flash_attention", time_attention, pk)
+    fd = phase("time fleet_drift", time_fleet_drift, pk, windows, refs)
+    pj = phase("time pairwise_js", time_pairwise_js, pk, cap)
+    ssd = phase("time ssd_scan", time_ssd, pk)
     print(f"[drift] kernel share of one observe at {DRIFT_N} streams: "
           f"{100 * fd['ms'] / split['total']:.2f}%")
     print(f"[group] kernel share of one grouping request: "
@@ -971,13 +1219,18 @@ def main():
 
     src = {name: (source, replaces) for name, source, replaces in KERNELS}
     kernels = [
-        _entry("flash_attention", *src["flash_attention"],
-               launches["flash_attention"], err["flash_attention"],
-               att["prefill"], decode=att["decode"]),
+        dict(_entry("flash_attention", *src["flash_attention"],
+                    launches["flash_attention"], err["flash_attention"],
+                    att["prefill"], decode=att["decode"],
+                    hymba_prefill=att["hymba_prefill"],
+                    hymba_decode=att["hymba_decode"]),
+             hymba_launches=hymba["flash_attention"]),
         _entry("fleet_drift", *src["fleet_drift"], launches["fleet_drift"],
                err["fleet_drift"], fd),
         _entry("pairwise_js", *src["pairwise_js"], launches["pairwise_js"],
                err["pairwise_js"], pj[1], requests_32=pj[32]),
+        _entry("ssd_scan", *src["ssd_scan"], launches["ssd_scan"],
+               err["ssd_scan"], ssd),
     ]
     assert [e["name"] for e in kernels] == [k[0] for k in KERNELS]
     for e in kernels:

@@ -12,6 +12,10 @@ pairwise_js — the (N, M) Jensen-Shannon matrix between histogram rows (a
     warp per fleet row, request rows staged in shared memory), CUDA C++
     in `csrc/pairwise_js.cu`; replaces the Pallas TPU kernel of the same
     name.
+ssd_scan — the Mamba-2 SSD chunk scan of hymba's SSM heads, with the final
+    state (a block per (batch, head) walking the chunks in order, the
+    state in shared memory), CUDA C++ in `csrc/ssd_scan.cu`; replaces the
+    Pallas TPU kernel of the same name.
 
 ops.py dispatches by the tensor's device ("auto") or to the plain version
 ("ref"); ref.py holds the plain versions; _build.py compiles the CUDA

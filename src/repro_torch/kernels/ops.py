@@ -9,15 +9,18 @@ Every op takes `impl`:
 
 The signatures are those of the JAX package's `kernels/ops.py` without
 its `mesh`/`shard` arguments (sharding comes with the port's distribution
-module). Its ops that this port has not reached yet (`ssd`, `mlstm`) are
-queued in ROADMAP.md.
+module). Its op that this port has not reached yet (`mlstm`) is queued in
+ROADMAP.md.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.fleet_drift import fleet_drift as _fdrift
 from repro_torch.kernels.pairwise_js import pairwise_js as _pjs
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
 IMPLS = ("auto", "ref")
 
@@ -64,3 +67,20 @@ def fleet_drift(tokens, ref, *, buckets: int, vocab: int = 0,
     if impl == "auto":
         return _fdrift(tokens, ref, buckets=buckets, vocab=vocab, eps=eps)
     raise _unknown("fleet_drift", impl)
+
+
+def ssd(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_state: bool = False,
+        impl: str = "auto"):
+    """Chunkwise SSD. x: (B,S,H,P); dt: (B,S,H); A,D: (H,); Bm,Cm: (B,S,N).
+
+    Returns y (B,S,H,P) in x.dtype [, final state (B,H,P,N) fp32]. "auto"
+    hands dt, A and D to the kernel in fp32 (the math is fp32 either way);
+    "ref" is the token-by-token oracle `ref.ssd_recurrent`."""
+    if impl == "ref":
+        return _ref.ssd_recurrent(x, dt, A, Bm, Cm, D,
+                                  return_state=return_state)
+    if impl == "auto":
+        f32 = torch.float32
+        return _ssd(x, dt.to(f32), A.to(f32), Bm, Cm, D.to(f32), chunk=chunk,
+                    return_state=return_state)
+    raise _unknown("ssd", impl)

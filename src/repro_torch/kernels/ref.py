@@ -109,3 +109,90 @@ def fleet_drift_ref(tokens, ref, *, buckets: int, vocab: int = 0,
     kl_pm = torch.sum(p * torch.log(p / m), dim=-1)
     kl_qm = torch.sum(q * torch.log(q / m), dim=-1)
     return 0.5 * (kl_pm + kl_qm), h
+
+
+# ---------------------------------------------------------------------------
+# SSD (Mamba-2): the chunked form and the token-by-token oracle
+# ---------------------------------------------------------------------------
+def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 64, init_state=None,
+                return_state: bool = False):
+    """Chunkwise SSD scan, the plain version of the `ssd_scan` kernel.
+
+    x: (B,S,H,P), dt: (B,S,H) (post-softplus), A: (H,) negative,
+    Bm, Cm: (B,S,N), D: (H,) skip. Chunks of Q = min(chunk, S) steps: the
+    intra-chunk term (C B^T o L) x with L[i, j] = exp(cum_i - cum_j) dt_j
+    for j <= i, the inter-chunk term exp(cum_i) C_i . state, and the state
+    carried from chunk to chunk; a ragged tail is padded with dt = 0.
+    fp32 math. Returns y (B,S,H,P) in x.dtype [, state (B,H,P,N) fp32].
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    x32, dt32 = x.to(F32), dt.to(F32)
+    B32, C32 = Bm.to(F32), Cm.to(F32)
+    if pad:
+        x32 = torch.nn.functional.pad(x32, (0, 0, 0, 0, 0, pad))
+        dt32 = torch.nn.functional.pad(dt32, (0, 0, 0, pad))
+        B32 = torch.nn.functional.pad(B32, (0, 0, 0, pad))
+        C32 = torch.nn.functional.pad(C32, (0, 0, 0, pad))
+    n = x32.shape[1] // Q
+    xc = x32.reshape(Bsz, n, Q, H, P)
+    dtc = dt32.reshape(Bsz, n, Q, H)
+    Bc = B32.reshape(Bsz, n, Q, N)
+    Cc = C32.reshape(Bsz, n, Q, N)
+
+    cum = torch.cumsum(dtc * A.to(F32), dim=2)               # (B,n,Q,H)
+    seg_end = cum[:, :, -1, :]                               # (B,n,H)
+
+    # intra-chunk; the mask selects 0 before the exponential, whose
+    # argument is positive (and may overflow) above the diagonal
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,n,Q,Q,H)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    li = torch.where(mask[None, None, :, :, None], li, NEG_INF)
+    Lmat = torch.exp(li) * dtc[:, :, None, :, :]
+    CB = torch.einsum("bcis,bcjs->bcij", Cc, Bc)             # (B,n,Q,Q)
+    y = torch.einsum("bcijh,bcjhp->bcihp", CB[..., None] * Lmat, xc)
+
+    # each chunk's own end state, then the recurrence over chunks
+    wj = torch.exp(seg_end[:, :, None, :] - cum) * dtc       # (B,n,Q,H)
+    states = torch.einsum("bcjh,bcjs,bcjhp->bchps", wj, Bc, xc)
+    st = (torch.zeros((Bsz, H, P, N), dtype=F32, device=x.device)
+          if init_state is None else init_state.to(F32))
+    prev = []
+    for c in range(n):
+        prev.append(st)
+        st = torch.exp(seg_end[:, c])[:, :, None, None] * st + states[:, c]
+    prev = torch.stack(prev, dim=1)                          # (B,n,H,P,N)
+    y = y + torch.einsum("bcis,bchps->bcihp", Cc, prev) \
+        * torch.exp(cum)[..., None]
+
+    y = y.reshape(Bsz, n * Q, H, P) + x32 * D.to(F32)[None, None, :, None]
+    y = y[:, :S].to(x.dtype)
+    return (y, st) if return_state else y
+
+
+def ssd_recurrent(x, dt, A, Bm, Cm, D, *, init_state=None,
+                  return_state: bool = False):
+    """Token-by-token SSD, the oracle.
+
+    x: (B,S,H,P); dt: (B,S,H) post-softplus; A: (H,) negative;
+    Bm, Cm: (B,S,N); D: (H,). Per step: state = exp(dt A) state +
+    dt B (outer) x, y = C . state + D x, in fp32. Returns y (B,S,H,P) in
+    x.dtype [, state (B,H,P,N) fp32].
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    st = (torch.zeros((Bsz, H, P, N), dtype=F32, device=x.device)
+          if init_state is None else init_state.to(F32))
+    A32, D32 = A.to(F32), D.to(F32)
+    ys = []
+    for t in range(S):
+        xt, dtt = x[:, t].to(F32), dt[:, t].to(F32)
+        bt, ct = Bm[:, t].to(F32), Cm[:, t].to(F32)
+        st = torch.exp(dtt * A32)[:, :, None, None] * st + torch.einsum(
+            "bh,bn,bhp->bhpn", dtt, bt, xt)
+        ys.append(torch.einsum("bn,bhpn->bhp", ct, st)
+                  + xt * D32[None, :, None])
+    y = torch.stack(ys, dim=1).to(x.dtype) if S else torch.zeros_like(x)
+    return (y, st) if return_state else y

@@ -1,15 +1,18 @@
-"""Transformer layers of olmo-1b: non-parametric LayerNorm, RoPE,
-attention (full and decode-against-cache), the SwiGLU MLP, tied
-embedding and unembedding.
+"""Transformer layers of the ported families: norms (non-parametric
+LayerNorm, RMSNorm), RoPE, attention (full, sliding window with an
+always-visible meta-token prefix, decode against a full or ring cache), the
+SwiGLU MLP, tied or untied embedding and unembedding.
 
 Mirrors the JAX package's `models/layers.py` at the same names and
 layouts: activations (B, S, D) or (B, S, H, hd), wq (D, H, hd),
 wo (H, hd, D). Parameters are cast to the compute dtype per op (a no-op
 when the caller already holds them in it); norms and softmax run in fp32.
-Attention goes through `kernels.ops.attention`: the Hopper kernel for CUDA
-tensors, the plain version for CPU tensors. The other norms, activations,
-qk-norm, untied embeddings, sliding windows and meta tokens of the JAX
-module arrive with the families that use them (ROADMAP.md, queue 1);
+Full attention goes through `kernels.ops.attention`: the Hopper kernel
+for CUDA tensors, the plain version for CPU tensors. Windowed attention
+(blockwise window plus meta prefix) and ring-cache decode are plain
+PyTorch, as the JAX package runs them in XLA. LayerNorm with an affine,
+GELU, qk-norm and tensor-parallel head padding of the JAX module arrive
+with the families that use them (ROADMAP.md, queue 1);
 `transformer.check_ported` refuses such configs.
 """
 from __future__ import annotations
@@ -31,15 +34,25 @@ F32 = torch.float32
 # Norms
 # ---------------------------------------------------------------------------
 def norm_spec(cfg: ModelConfig):
-    return {}                       # olmo: no learnable affine
+    if cfg.norm == "rmsnorm":
+        return {"scale": Spec((cfg.d_model,), "ones")}
+    if cfg.norm == "nonparam_ln":   # olmo: no learnable affine
+        return {}
+    raise ValueError(cfg.norm)
 
 
 def apply_norm(cfg: ModelConfig, params, x, eps: float = 1e-5):
-    """Non-parametric LayerNorm in fp32 (population variance, as jnp.var)."""
+    """RMSNorm, or non-parametric LayerNorm (population variance, as
+    jnp.var), in fp32."""
     xf = x.to(F32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, keepdim=True, correction=0)
-    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    if cfg.norm == "rmsnorm":
+        ms = xf.pow(2).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * params["scale"].to(F32)
+    else:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -98,38 +111,137 @@ def _out_proj(o, wo, dtype):
     return o.to(dtype).flatten(-2) @ wo.to(dtype).reshape(H * hd, D)
 
 
+def _repeat_kv(k, H: int):
+    """(B,T,K,hd) -> (B,T,H,hd), each KV head repeated H // K times."""
+    K = k.shape[2]
+    return k if K == H else k.repeat_interleave(H // K, dim=2)
+
+
+def _gqa_scores(q, k):
+    """q: (B,S,H,hd), k: (B,T,K,hd) -> scores (B,H,S,T) in fp32. The
+    product runs in the promoted dtype of q and k, as jnp.einsum does."""
+    dt = torch.promote_types(q.dtype, k.dtype)
+    kk = _repeat_kv(k, q.shape[2])
+    s = torch.einsum("bshd,bthd->bhst", q.to(dt), kk.to(dt)).to(F32)
+    return s / math.sqrt(q.shape[-1])
+
+
+def _gqa_out(probs, v, out_dtype):
+    """probs: (B,H,S,T) fp32; v: (B,T,K,hd) -> (B,S,H,hd). The
+    probabilities are rounded to v's dtype first, as in the JAX package."""
+    vv = _repeat_kv(v, probs.shape[1])
+    return torch.einsum("bhst,bthd->bshd", probs.to(vv.dtype),
+                        vv).to(out_dtype)
+
+
 def attention_full(cfg: ModelConfig, p, x, positions, *, causal: bool,
-                   attn_impl: str = "auto"):
+                   kernel_impl: str = "auto"):
     """Full (possibly causal) attention over the whole sequence.
     x: (B,S,D). Returns (out (B,S,D), (k, v)) with k, v (B,S,K,hd) after
     RoPE, the rows prefill writes into the decode cache."""
     q, k, v = _qkv(cfg, p, x, positions)
-    o = ops.attention(q, k, v, causal=causal, impl=attn_impl)
+    o = ops.attention(q, k, v, causal=causal, impl=kernel_impl)
+    return _out_proj(o, p["wo"], x.dtype), (k, v)
+
+
+def attention_windowed(cfg: ModelConfig, p, x, positions, *, window: int,
+                       meta: int):
+    """Exact sliding-window causal attention with an always-visible meta
+    prefix, computed blockwise in O(S * (2*window + meta)), plain PyTorch.
+
+    Visibility of key j from query i (i >= j): (i - j < window) OR
+    (j < meta). The sequence is padded to a multiple of the window; each
+    block of `window` queries attends to its own block and the one before,
+    and to the meta rows the window does not already cover.
+    Returns (out (B,S,D), (k, v)) with k, v (B,S,K,hd).
+    """
+    B, S, D = x.shape
+    w = window
+    q, k, v = _qkv(cfg, p, x, positions)
+    H, hd = q.shape[2], q.shape[3]
+    pad = (-S) % w
+    n = (S + pad) // w
+    kf, vf = _repeat_kv(k, H), _repeat_kv(v, H)          # flat heads
+    if pad:
+        q, kf, vf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, kf, vf))
+    qc = q.reshape(B, n, w, H, hd)
+    kc = kf.reshape(B, n, w, H, hd)
+    vc = vf.reshape(B, n, w, H, hd)
+    # each block's keys: the previous block (zero for block 0), then its own
+    kcat = torch.cat([F.pad(kc[:, :-1], (0, 0, 0, 0, 0, 0, 1, 0)), kc], 2)
+    vcat = torch.cat([F.pad(vc[:, :-1], (0, 0, 0, 0, 0, 0, 1, 0)), vc], 2)
+    scores = torch.einsum("bnahd,bnchd->bnhac", qc, kcat).to(F32)
+    scores = scores / math.sqrt(hd)
+
+    dev = x.device
+    a = torch.arange(w, device=dev)
+    cidx = torch.arange(2 * w, device=dev)
+    ci = torch.arange(n, device=dev)
+    rel = a[:, None] + w - cidx[None, :]                  # i - j
+    win_ok = (rel >= 0) & (rel < w)                       # (w, 2w)
+    key_abs = (ci[:, None] - 1) * w + cidx[None, :]       # (n, 2w)
+    valid_key = (key_abs >= 0) & (key_abs < S)
+    mask = win_ok[None] & valid_key[:, None, :]           # (n, w, 2w)
+    scores = torch.where(mask[None, :, None], scores, NEG_INF)
+
+    if meta > 0:
+        # meta keys [0, meta) that the window does not cover: j <= i - w
+        km, vm = kf[:, :meta], vf[:, :meta]
+        ms = torch.einsum("bnahd,bmhd->bnham", qc, km).to(F32)
+        ms = ms / math.sqrt(hd)
+        q_abs = ci[:, None] * w + a[None, :]              # (n, w)
+        j = torch.arange(meta, device=dev)
+        mmask = j[None, None, :] <= (q_abs[..., None] - w)
+        ms = torch.where(mmask[None, :, None], ms, NEG_INF)
+        scores = torch.cat([ms, scores], dim=-1)
+        vcat = torch.cat([vm[:, None].expand(B, n, meta, H, hd), vcat], 2)
+
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bnhac,bnchd->bnahd", probs.to(vcat.dtype), vcat)
+    o = o.reshape(B, n * w, H, hd)[:, :S]
     return _out_proj(o, p["wo"], x.dtype), (k, v)
 
 
 def attention_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
-                     window: int, meta: int, attn_impl: str = "auto"):
+                     window: int, meta: int, kernel_impl: str = "auto"):
     """Single-token decode. x: (B,1,D); pos: absolute position of the new
-    token; cache {"k","v": (B,cap,K,hd)}.
+    token (meta tokens included). cache:
+      full   : {"k","v": (B,cap,K,hd)}                  — global layers
+      sliding: {"k","v": (B,wcap,K,hd), "mk","mv": (B,meta,K,hd)}
 
-    The new K/V row is written into the cache IN PLACE at `pos` (the JAX
-    version returns an updated copy); attention then runs over the cache
-    prefix [:, :pos+1] with S=1, which is exactly the `t <= pos` key mask
-    of the JAX version. Returns (out (B,1,D), cache).
+    The new K/V row is written into the cache IN PLACE (the JAX version
+    returns an updated copy): at `pos` of a full cache, at slot
+    pos % wcap of a ring. A full cache then attends through the kernel
+    over the prefix [:, :pos+1] with S=1, which is exactly the `t <= pos`
+    key mask of the JAX version. A ring attends, in plain PyTorch, to the
+    slots whose stored position (the last one <= pos congruent to the
+    slot) is a non-meta position inside the window, and to the meta rows.
+    Returns (out (B,1,D), cache).
     """
-    if window > 0 or meta > 0:
-        raise NotImplementedError(
-            "sliding-window / meta-token decode is not ported yet "
-            "(ROADMAP.md, queue 1)")
     B = x.shape[0]
     positions = torch.full((B, 1), pos, device=x.device)
     q, k, v = _qkv(cfg, p, x, positions)                 # k,v: (B,1,K,hd)
     ck, cv = cache["k"], cache["v"]
-    ck[:, pos] = k[:, 0].to(ck.dtype)
-    cv[:, pos] = v[:, 0].to(cv.dtype)
-    o = ops.attention(q, ck[:, :pos + 1], cv[:, :pos + 1], causal=True,
-                      impl=attn_impl)
+    if window <= 0:
+        ck[:, pos] = k[:, 0].to(ck.dtype)
+        cv[:, pos] = v[:, 0].to(cv.dtype)
+        o = ops.attention(q, ck[:, :pos + 1], cv[:, :pos + 1], causal=True,
+                          impl=kernel_impl)
+        return _out_proj(o, p["wo"], x.dtype), cache
+
+    wcap = ck.shape[1]
+    slot = pos % wcap
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    t = torch.arange(wcap, device=x.device)
+    stored = pos - torch.remainder(pos - t, wcap)
+    key_mask = (stored >= meta) & (stored <= pos) & (stored > pos - wcap)
+    scores = torch.where(key_mask, _gqa_scores(q, ck), NEG_INF)
+    vv = cv
+    if meta > 0:
+        scores = torch.cat([_gqa_scores(q, cache["mk"]), scores], dim=-1)
+        vv = torch.cat([cache["mv"], cv], dim=1)
+    o = _gqa_out(torch.softmax(scores, dim=-1), vv, x.dtype)
     return _out_proj(o, p["wo"], x.dtype), cache
 
 
@@ -157,7 +269,11 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def embedding_spec(cfg: ModelConfig):
-    return {"table": Spec((padded_vocab(cfg), cfg.d_model), "embed")}
+    V = padded_vocab(cfg)
+    spec = {"table": Spec((V, cfg.d_model), "embed")}
+    if not cfg.tie_embeddings:
+        spec["unembed"] = Spec((cfg.d_model, V), "embed")
+    return spec
 
 
 def embed_tokens(p, tokens, dtype):
@@ -165,7 +281,10 @@ def embed_tokens(p, tokens, dtype):
 
 
 def unembed(cfg: ModelConfig, p, x):
-    logits = x @ p["table"].to(x.dtype).T        # tied embeddings
+    if cfg.tie_embeddings:
+        logits = x @ p["table"].to(x.dtype).T
+    else:
+        logits = x @ p["unembed"].to(x.dtype)
     V = padded_vocab(cfg)
     if V != cfg.vocab_size:   # mask padded vocab entries
         pad_mask = torch.arange(V, device=x.device) >= cfg.vocab_size

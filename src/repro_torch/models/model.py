@@ -39,24 +39,24 @@ class Model:
 
     # ---- compute ----------------------------------------------------------
     def apply(self, params, inputs, *, compute_dtype=torch.bfloat16,
-              attn_impl: str = "auto"):
+              kernel_impl: str = "auto"):
         logits, aux, _ = T.forward(self.cfg, params, inputs,
                                    compute_dtype=compute_dtype,
-                                   attn_impl=attn_impl)
+                                   kernel_impl=kernel_impl)
         return logits, aux
 
     def prefill(self, params, inputs, cap: int, *,
                 compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
-                attn_impl: str = "auto"):
+                kernel_impl: str = "auto"):
         return T.prefill(self.cfg, params, inputs, cap,
                          compute_dtype=compute_dtype,
-                         cache_dtype=cache_dtype, attn_impl=attn_impl)
+                         cache_dtype=cache_dtype, kernel_impl=kernel_impl)
 
     def decode(self, params, token, cache, pos: int, *,
-               compute_dtype=torch.bfloat16, attn_impl: str = "auto"):
+               compute_dtype=torch.bfloat16, kernel_impl: str = "auto"):
         return T.decode_step(self.cfg, params, token, cache, pos,
                              compute_dtype=compute_dtype,
-                             attn_impl=attn_impl)
+                             kernel_impl=kernel_impl)
 
     # ---- cache ------------------------------------------------------------
     def cache_spec(self, batch: int, cap: int):
@@ -64,8 +64,9 @@ class Model:
 
     def init_cache(self, batch: int, cap: int, dtype=torch.bfloat16,
                    device="cuda"):
-        """Zeroed decode cache; bf16 by default like the JAX package's,
-        whatever the compute dtype."""
+        """Zeroed decode cache, every leaf in `dtype` (the Mamba state
+        included), bf16 by default like the JAX package's, whatever the
+        compute dtype."""
         dev = resolve_device(device)
         return P.tree_map(
             lambda s: torch.zeros(s.shape, dtype=dtype, device=dev),

@@ -1,22 +1,31 @@
-"""Model assembly for the dense family: layer plan, spec trees, forward /
-prefill / decode.
+"""Model assembly for the dense and hybrid families: layer plan, spec trees,
+forward / prefill / decode.
 
 Mirrors the JAX package's `models/transformer.py`. A model is a sequence
-of segments, runs of homogeneous layers whose parameters are stacked on a
-leading layer axis (`params["segments"][i]`, as in the JAX tree); the JAX
-`lax.scan` over a segment's layers is a Python loop here. What olmo-1b
-does not use (other families, norms, activations, qk-norm, untied
-embeddings, sliding windows, meta tokens) arrives with the slices that
-need it (ROADMAP.md, queue 1).
+of segments, runs of consecutive layers with the same attention window
+whose parameters are stacked on a leading layer axis
+(`params["segments"][i]`, as in the JAX tree); the JAX `lax.scan` over a
+segment's layers is a Python loop here. A hybrid (hymba) block runs
+attention and Mamba heads side by side on the same normed input and mixes
+their RMS-normed outputs; meta tokens are prepended to every sequence.
+What the ported configs do not use (MoE, the xLSTM family, LayerNorm with
+an affine, GELU, qk-norm, an embedding frontend, non-causal attention)
+arrives with the slices that need it (ROADMAP.md, queue 1).
+
+`kernel_impl` ("auto" or "ref") is handed to every kernel op of a call:
+"ref" runs the plain versions on any device (the card's kernel-vs-plain
+comparisons).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List
 
 import torch
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.param import Spec, tree_map
 
 
@@ -24,15 +33,13 @@ def check_ported(cfg: ModelConfig):
     """Raise NotImplementedError for a config that uses anything the port
     does not have yet."""
     missing = [what for what, absent in [
-        (f"family {cfg.family!r}", cfg.family != DENSE),
-        (f"norm {cfg.norm!r}", cfg.norm != "nonparam_ln"),
+        (f"family {cfg.family!r}", cfg.family not in (DENSE, HYBRID)),
+        ("MoE", cfg.moe is not None),
+        (f"norm {cfg.norm!r}", cfg.norm not in ("nonparam_ln", "rmsnorm")),
         (f"activation {cfg.act!r}", cfg.act != "swiglu"),
-        ("untied embeddings", not cfg.tie_embeddings),
         ("qk-norm", cfg.qk_norm),
         ("non-causal attention", not cfg.causal),
         ("an embedding frontend", cfg.embedding_frontend),
-        ("sliding-window attention", cfg.sliding_window),
-        ("meta tokens", cfg.meta_tokens),
     ] if absent]
     if missing:
         raise NotImplementedError(
@@ -40,12 +47,25 @@ def check_ported(cfg: ModelConfig):
             f"(ROADMAP.md, queue 1)")
 
 
-def layer_plan(cfg: ModelConfig) -> List[int]:
-    """Layer count of each segment. The JAX version groups consecutive
-    layers by attention window; with full attention everywhere (the only
-    pattern ported) that is one segment of all layers."""
-    check_ported(cfg)
-    return [cfg.num_layers]
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    count: int
+    window: int = 0    # 0 = full attention
+
+
+def layer_plan(cfg: ModelConfig) -> List[Segment]:
+    """Consecutive layers grouped by attention window (hymba: global x1,
+    window x14, global x1, window x15, global x1)."""
+    segs: List[Segment] = []
+    for i in range(cfg.num_layers):
+        w = (cfg.sliding_window
+             if cfg.sliding_window and i not in cfg.global_attn_layers
+             else 0)
+        if segs and segs[-1].window == w:
+            segs[-1] = Segment(segs[-1].count + 1, w)
+        else:
+            segs.append(Segment(1, w))
+    return segs
 
 
 # ---------------------------------------------------------------------------
@@ -57,57 +77,122 @@ def _stack_spec(spec_tree, count: int):
 
 
 def _block_spec(cfg: ModelConfig):
-    return {
+    spec = {
         "ln1": L.norm_spec(cfg),
         "attn": L.attention_spec(cfg),
         "ln2": L.norm_spec(cfg),
         "mlp": L.mlp_spec(cfg),
     }
+    if cfg.family == HYBRID:
+        spec["mamba"] = ssm_lib.mamba_spec(cfg)
+        spec["mix_a"] = Spec((cfg.d_model,), "ones")
+        spec["mix_s"] = Spec((cfg.d_model,), "ones")
+    return spec
 
 
 def build_spec(cfg: ModelConfig):
-    """Full parameter spec tree of a dense architecture."""
+    """Full parameter spec tree of an architecture."""
+    check_ported(cfg)
     spec = {"embed": L.embedding_spec(cfg),
             "final_norm": L.norm_spec(cfg)}
-    spec["segments"] = [_stack_spec(_block_spec(cfg), n)
-                        for n in layer_plan(cfg)]
+    if cfg.meta_tokens:
+        spec["meta"] = Spec((cfg.meta_tokens, cfg.d_model), "embed")
+    spec["segments"] = [_stack_spec(_block_spec(cfg), seg.count)
+                        for seg in layer_plan(cfg)]
     return spec
 
 
 def cache_spec(cfg: ModelConfig, batch: int, cap: int):
-    """Spec tree of the decode cache at static capacity `cap`: per segment
-    k, v of shape (layers, batch, cap, K, hd)."""
+    """Spec tree of the decode cache at static capacity `cap` (absolute
+    positions, meta tokens included). Per segment: k, v of shape
+    (layers, batch, kv_cap, K, hd), kv_cap = cap for global layers and
+    min(window, cap) for a ring; a ring with meta tokens adds mk, mv
+    (layers, batch, meta, K, hd); a hybrid block adds its Mamba cache
+    {"conv" (layers, batch, W-1, di), "state" (layers, batch, H, P, N)}."""
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    meta = cfg.meta_tokens
     segs = []
-    for n in layer_plan(cfg):
-        shape = (n, batch, cap, K, hd)
-        segs.append({"k": Spec(shape, "zeros"), "v": Spec(shape, "zeros")})
+    for seg in layer_plan(cfg):
+        n, w = seg.count, seg.window
+        kv_cap = cap if w == 0 else min(w, cap)
+        c = {"k": Spec((n, batch, kv_cap, K, hd), "zeros"),
+             "v": Spec((n, batch, kv_cap, K, hd), "zeros")}
+        if w > 0 and meta:
+            c["mk"] = Spec((n, batch, meta, K, hd), "zeros")
+            c["mv"] = Spec((n, batch, meta, K, hd), "zeros")
+        if cfg.family == HYBRID:
+            di, Hs, P = ssm_lib.mamba_heads(cfg)
+            c["mamba"] = {
+                "conv": Spec((n, batch, cfg.ssm.conv_width - 1, di),
+                             "zeros"),
+                "state": Spec((n, batch, Hs, P, cfg.ssm.state_dim),
+                              "zeros")}
+        segs.append(c)
     return {"segments": segs}
 
 
 # ---------------------------------------------------------------------------
 # Block forward / decode
 # ---------------------------------------------------------------------------
-def _layer(segp, i: int):
-    """Parameters of layer `i` of a stacked segment (views, no copy)."""
-    return tree_map(lambda t: t[i], segp)
+def _layer(tree, i: int):
+    """Layer `i` of a stacked segment's parameters or cache (views, no
+    copy: in-place writes reach the stack)."""
+    return tree_map(lambda t: t[i], tree)
 
 
-def _block_forward(cfg: ModelConfig, p, x, positions, *, attn_impl: str):
+def _rms(x, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    return (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+            ).to(x.dtype)
+
+
+def _mix(cfg: ModelConfig, p, x, attn_out, ssm_out):
+    """Residual update of a block: attention alone, or (hybrid) the mean
+    of the RMS-normed attention and Mamba outputs, each scaled."""
+    if cfg.family != HYBRID:
+        return x + attn_out
+    na = _rms(attn_out) * p["mix_a"].to(x.dtype)
+    ns = _rms(ssm_out) * p["mix_s"].to(x.dtype)
+    return x + 0.5 * (na + ns)
+
+
+def _block_forward(cfg: ModelConfig, p, x, positions, *, window: int,
+                   collect_cache: bool, kernel_impl: str):
     h = L.apply_norm(cfg, p["ln1"], x)
-    attn_out, kv = L.attention_full(cfg, p["attn"], h, positions,
-                                    causal=True, attn_impl=attn_impl)
-    x = x + attn_out
+    if window > 0:
+        attn_out, (k, v) = L.attention_windowed(
+            cfg, p["attn"], h, positions, window=window,
+            meta=cfg.meta_tokens)
+    else:
+        attn_out, (k, v) = L.attention_full(cfg, p["attn"], h, positions,
+                                            causal=True,
+                                            kernel_impl=kernel_impl)
+    cache = {"k": k, "v": v} if collect_cache else None
+    ssm_out = None
+    if cfg.family == HYBRID:
+        res = ssm_lib.apply_mamba(cfg, p["mamba"], h,
+                                  return_cache=collect_cache,
+                                  kernel_impl=kernel_impl)
+        if collect_cache:
+            ssm_out, cache["mamba"] = res
+        else:
+            ssm_out = res
+    x = _mix(cfg, p, x, attn_out, ssm_out)
     h2 = L.apply_norm(cfg, p["ln2"], x)
-    return x + L.apply_mlp(cfg, p["mlp"], h2), kv
+    return x + L.apply_mlp(cfg, p["mlp"], h2), cache
 
 
-def _block_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
-                  attn_impl: str):
+def _block_decode(cfg: ModelConfig, p, x, cache, pos: int, *, window: int,
+                  kernel_impl: str):
     h = L.apply_norm(cfg, p["ln1"], x)
     attn_out, _ = L.attention_decode(cfg, p["attn"], h, cache, pos,
-                                     window=0, meta=0, attn_impl=attn_impl)
-    x = x + attn_out
+                                     window=window, meta=cfg.meta_tokens,
+                                     kernel_impl=kernel_impl)
+    ssm_out = None
+    if cfg.family == HYBRID:
+        ssm_out, _ = ssm_lib.apply_mamba_step(cfg, p["mamba"], h,
+                                              cache["mamba"])
+    x = _mix(cfg, p, x, attn_out, ssm_out)
     h2 = L.apply_norm(cfg, p["ln2"], x)
     return x + L.apply_mlp(cfg, p["mlp"], h2)
 
@@ -117,65 +202,107 @@ def _block_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
 # ---------------------------------------------------------------------------
 def forward(cfg: ModelConfig, params, inputs, *,
             compute_dtype=torch.bfloat16, collect_cache: bool = False,
-            attn_impl: str = "auto"):
-    """Full-sequence forward. inputs: int tokens (B,S).
-    Returns (logits (B,S,V), aux, caches|None); aux is 0 for the dense
-    family, caches a list per segment of {"k","v": (n,B,S,K,hd)}."""
+            kernel_impl: str = "auto"):
+    """Full-sequence forward. inputs: int tokens (B,S). Meta tokens are
+    prepended internally and stripped from the logits.
+    Returns (logits (B,S,V), aux, caches|None); aux is 0 for these
+    families, caches a list per segment of {"k","v": (n,B,S+meta,K,hd)}
+    [+ "mamba": {"conv","state"} stacked over the segment's layers]."""
     x = L.embed_tokens(params["embed"], inputs, compute_dtype)
-    B, S = inputs.shape
+    B = x.shape[0]
+    meta = cfg.meta_tokens
+    if meta:
+        x = torch.cat([params["meta"].to(compute_dtype).expand(
+            B, meta, cfg.d_model), x], dim=1)
+    S = x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     caches = []
-    for n, segp in zip(layer_plan(cfg), params["segments"]):
-        ks, vs = [], []
-        for i in range(n):
-            x, (k, v) = _block_forward(cfg, _layer(segp, i), x, positions,
-                                       attn_impl=attn_impl)
-            if collect_cache:
-                ks.append(k)
-                vs.append(v)
+    for seg, segp in zip(layer_plan(cfg), params["segments"]):
+        layer_caches = []
+        for i in range(seg.count):
+            x, c = _block_forward(cfg, _layer(segp, i), x, positions,
+                                  window=seg.window,
+                                  collect_cache=collect_cache,
+                                  kernel_impl=kernel_impl)
+            layer_caches.append(c)
         if collect_cache:
-            caches.append({"k": torch.stack(ks), "v": torch.stack(vs)})
+            caches.append(_stack_layers(layer_caches))
     x = L.apply_norm(cfg, params["final_norm"], x)
-    logits = L.unembed(cfg, params["embed"], x)
+    logits = L.unembed(cfg, params["embed"], x[:, meta:])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, (caches if collect_cache else None)
 
 
+def _stack_layers(trees):
+    """A list of per-layer cache trees -> one tree stacked on dim 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_layers([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
 def prefill(cfg: ModelConfig, params, inputs, cap: int, *,
             compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
-            attn_impl: str = "auto"):
+            kernel_impl: str = "auto"):
     """Run the full prompt and build a decode cache of static capacity
-    `cap`. Returns (last_logits (B,V), cache_tree, next_pos)."""
+    `cap` (absolute positions, meta tokens included). K/V go to the cache
+    in `cache_dtype`; the Mamba cache keeps its conv rows in the compute
+    dtype and its state in fp32, as in the JAX package (the serving pool
+    casts every leaf on write). Returns (last_logits (B,V), cache_tree,
+    next_pos = S + meta)."""
     logits, _, kv_caches = forward(cfg, params, inputs,
                                    compute_dtype=compute_dtype,
-                                   collect_cache=True, attn_impl=attn_impl)
-    S = inputs.shape[1]
-    n = min(S, cap)
+                                   collect_cache=True,
+                                   kernel_impl=kernel_impl)
+    S_tot = inputs.shape[1] + cfg.meta_tokens
     segs = []
-    for kv in kv_caches:
-        c = {}
-        for name in ("k", "v"):
-            full = kv[name]                       # (n_layers, B, S, K, hd)
-            buf = torch.zeros(full.shape[:2] + (cap,) + full.shape[3:],
-                              dtype=cache_dtype, device=full.device)
-            buf[:, :, :n] = full[:, :, :n]
-            c[name] = buf
+    for seg, kv in zip(layer_plan(cfg), kv_caches):
+        k, v = kv["k"], kv["v"]                   # (n, B, S_tot, K, hd)
+        if seg.window == 0:
+            n = min(S_tot, cap)
+            c = {}
+            for name, full in (("k", k), ("v", v)):
+                buf = torch.zeros(full.shape[:2] + (cap,) + full.shape[3:],
+                                  dtype=cache_dtype, device=full.device)
+                buf[:, :, :n] = full[:, :, :n]
+                c[name] = buf
+        else:
+            c = _ring_from_full(k, v, min(seg.window, cap), cfg.meta_tokens,
+                                S_tot, cache_dtype)
+        if cfg.family == HYBRID:
+            c["mamba"] = kv["mamba"]
         segs.append(c)
-    return logits[:, -1], {"segments": segs}, S
+    return logits[:, -1], {"segments": segs}, S_tot
+
+
+def _ring_from_full(k, v, w: int, meta: int, S_tot: int, cache_dtype):
+    """Full (n,B,S_tot,K,hd) K/V -> a ring of width w (slot s holds the
+    last position <= S_tot - 1 congruent to s mod w, attention_decode's
+    slot convention) plus the meta rows as mk, mv. Slots no position has
+    reached hold row 0; decode masks them by their stored position."""
+    idx = torch.arange(w, device=k.device)
+    p_last = S_tot - 1
+    stored = torch.clamp(p_last - torch.remainder(p_last - idx, w),
+                         0, S_tot - 1)
+    c = {"k": k[:, :, stored].to(cache_dtype),
+         "v": v[:, :, stored].to(cache_dtype)}
+    if meta:
+        c["mk"] = k[:, :, :meta].to(cache_dtype)
+        c["mv"] = v[:, :, :meta].to(cache_dtype)
+    return c
 
 
 def decode_step(cfg: ModelConfig, params, token, cache, pos: int, *,
-                compute_dtype=torch.bfloat16, attn_impl: str = "auto"):
+                compute_dtype=torch.bfloat16, kernel_impl: str = "auto"):
     """One-token decode. token: (B,1) int; pos: absolute position of the
-    token. The cache is updated in place. Returns (logits (B,1,V), cache).
-    """
+    token (meta tokens included). The cache is updated in place.
+    Returns (logits (B,1,V), cache)."""
     x = L.embed_tokens(params["embed"], token, compute_dtype)
-    for n, segp, segc in zip(layer_plan(cfg), params["segments"],
-                             cache["segments"]):
-        for i in range(n):
-            x = _block_decode(cfg, _layer(segp, i), x,
-                              {"k": segc["k"][i], "v": segc["v"][i]}, pos,
-                              attn_impl=attn_impl)
+    for seg, segp, segc in zip(layer_plan(cfg), params["segments"],
+                               cache["segments"]):
+        for i in range(seg.count):
+            x = _block_decode(cfg, _layer(segp, i), x, _layer(segc, i), pos,
+                              window=seg.window, kernel_impl=kernel_impl)
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(cfg, params["embed"], x)
     return logits, cache

@@ -8,9 +8,12 @@ emitted token, so EOS/max_new are checked at submit time) -> decode ticks
 pending-token entry; finished outputs accumulate until `drain()` hands
 them to the caller.
 
-Unlike the JAX version, decode writes each new K/V row into the pool in
-place: a tick whose slots form a contiguous range decodes on a view of
+Unlike the JAX version, decode writes its cache updates (the new K/V row
+at the position or ring slot, the Mamba conv rows and state) into the pool
+in place: a tick whose slots form a contiguous range decodes on a view of
 the pool, and only a scattered set of slots is gathered and written back.
+Every leaf is stored in the pool's dtype, the Mamba state included, as the
+JAX pool casts on write.
 """
 from __future__ import annotations
 
@@ -34,31 +37,34 @@ class SlotState:
 class CacheManager:
     """Fixed-slot KV cache pool with free-list admission. All device state
     is one cache tree with a slot axis of size `num_slots` (leaves
-    (layers, slots, cap, K, hd))."""
+    (layers, slots, ...)). `capacity` is the prompt + generation budget of
+    a request; the pool's position space adds the model's meta tokens."""
 
     def __init__(self, model: Model, *, num_slots: int, capacity: int,
                  dtype=torch.bfloat16, device="cuda"):
         self.model = model
         self.num_slots = num_slots
-        self.capacity = capacity                 # prompt+generation budget
-        self.cache = model.init_cache(num_slots, capacity, dtype, device)
+        self.user_capacity = capacity            # prompt+generation budget
+        self.capacity = capacity + model.cfg.meta_tokens
+        self.cache = model.init_cache(num_slots, self.capacity, dtype, device)
         self.slots: List[SlotState] = [SlotState() for _ in
                                        range(num_slots)]
 
     # -- admission ----------------------------------------------------------
     def check_fit(self, prompt_len: int, max_new: int):
         """A request's last decode step writes cache position
-        prompt_len + max_new - 2 (prefill emits token #1), so it fits iff
-        prompt_len + max_new - 1 <= capacity. Raises otherwise: an
-        oversized prompt must fail admission, not overflow its slot."""
+        prompt_len + meta_tokens + max_new - 2 (prefill emits token #1),
+        so it fits iff prompt_len + max_new - 1 <= user_capacity. Raises
+        otherwise: an oversized prompt must fail admission, not overflow
+        its slot."""
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1; got {max_new}")
-        if prompt_len + max_new - 1 > self.capacity:
+        if prompt_len + max_new - 1 > self.user_capacity:
             raise ValueError(
                 f"request does not fit its slot: prompt_len={prompt_len} "
-                f"+ max_new={max_new} - 1 > capacity={self.capacity} "
+                f"+ max_new={max_new} - 1 > capacity={self.user_capacity} "
                 f"(largest admissible prompt is "
-                f"{self.capacity - max_new + 1} tokens)")
+                f"{self.user_capacity - max_new + 1} tokens)")
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s.done]
@@ -79,9 +85,12 @@ class CacheManager:
 
     def write_prefill(self, slot: int, slot_cache, pos: int):
         """Copy a single-request prefill cache (batch dim 1) into the pool
-        at `slot`. (The JAX module's batched `write_prefill_many` arrives
-        with the fleet serving plane.)"""
-        for dst, src in zip(tree_leaves(self.cache), tree_leaves(slot_cache)):
+        at `slot`, leaf by leaf (K/V, ring, meta rows, Mamba conv and
+        state, in the cache spec's key order, which the prefill cache
+        keeps), each cast to the pool's dtype. (The JAX module's batched
+        `write_prefill_many` arrives with the fleet serving plane.)"""
+        for dst, src in zip(tree_leaves(self.cache), tree_leaves(slot_cache),
+                            strict=True):
             dst[:, slot] = src[:, 0].to(dst.dtype)
         self.slots[slot].pos = int(pos)
 

@@ -201,15 +201,40 @@ def test_init_cache_defaults_to_bf16(models):
 
 
 @pytest.mark.parametrize("change", [
-    dict(sliding_window=8), dict(meta_tokens=2), dict(family="moe"),
-    dict(norm="rmsnorm"), dict(act="gelu"), dict(qk_norm=True),
-    dict(tie_embeddings=False)], ids=lambda c: next(iter(c)))
+    dict(family="moe"), dict(act="gelu"), dict(qk_norm=True),
+    dict(family="ssm"), dict(norm="layernorm")],
+    ids=["family", "act", "qk_norm", "ssm_family", "layernorm"])
 def test_unported_configs_raise(change):
-    """A config that uses anything olmo-1b does not is refused with a
-    pointer to the ROADMAP, never served wrongly."""
+    """A config that uses anything the port does not have yet is refused
+    with a pointer to the ROADMAP, never served wrongly."""
     cfg = dataclasses.replace(smoke_config("olmo-1b"), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg)
+
+
+@pytest.mark.parametrize("change", [
+    dict(sliding_window=8, global_attn_layers=(0,)), dict(meta_tokens=2),
+    dict(norm="rmsnorm"), dict(tie_embeddings=False)],
+    ids=lambda c: next(iter(c)))
+def test_ported_config_changes_match_jax(change):
+    """olmo smoke with one feature that hymba brought to the port: the
+    forward logits equal the JAX package's on the same weights (fp32). A
+    window of 8 over 12 tokens pads and spans two blocks; meta tokens are
+    prepended and stripped."""
+    jcfg = dataclasses.replace(jax_smoke_config("olmo-1b"),
+                               vocab_size=VOCAB, **change)
+    tcfg = dataclasses.replace(smoke_config("olmo-1b"), vocab_size=VOCAB,
+                               **change)
+    jm = jax_build_model(jcfg)
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    tm = build_model(tcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    toks = _tokens((2, 12), seed=5)
+    want, _ = jax.jit(lambda p, t: jm.apply(p, t, compute_dtype=jnp.float32))(
+        jp, jnp.asarray(toks))
+    got, _ = tm.apply(tp, torch.from_numpy(toks), compute_dtype=torch.float32)
+    np.testing.assert_allclose(_np(got)[..., :VOCAB], _np(want)[..., :VOCAB],
+                               atol=FP32_TOL, rtol=0)
 
 
 def test_cuda_entry_points_raise_without_cuda(monkeypatch):
