@@ -16,27 +16,37 @@ Phases, in order; the script exits non-zero at the first failure:
    (GQA 25/5 at head_dim 64: prefill (1, 1152) causal; decode over a
    strided prefix of a (4, 1184, 5, 64) cache); for ssd_scan the six
    cases of tests/test_kernels.py and hymba's prefill shape (1, 1152, 50,
-   64, N 16) at chunks 64 and 128, final state included. Tolerance fp32
-   2e-4, bf16 2e-2.
-4. Serve olmo-1b, then hymba-1.5b, at full width through
+   64, N 16) at chunks 64 and 128, final state included; for mlstm_scan
+   the six cases of tests/test_kernels.py, xlstm-350m's prefill shape (1,
+   1024, 4, 512) bf16 at chunk 64 (output and final state), a ragged
+   S = 1000 with the state also against the token-by-token oracle, and
+   the full shape in fp32 against the oracle; for fleet_drift and
+   pairwise_js their CPU sweeps and the planes' full shapes. Tolerance
+   fp32 2e-4, bf16 2e-2 (drift and JS 1e-5 / 1e-6 absolute).
+4. Serve olmo-1b, hymba-1.5b and xlstm-350m at full width through
    `repro_torch.launch.serve.main` (8 requests, 4 slots, 32 new tokens,
-   random weights from seed 0; olmo 512-token prompts, hymba 1024-token
-   prompts, so with its 128 meta tokens the windowed layers' ring has
-   wrapped at prefill). Launch counters are set to 0 just before each run
-   and read just after: every global-attention layer must have gone
-   through flash_attention once per prefill and once per decode call, and
-   every hymba layer's Mamba heads through ssd_scan once per prefill.
-   Then for each a short torch.profiler window over one prefill and a few
-   decode ticks: device busy share and the kernels that take most device
-   time; for hymba also the device time of the plain windowed attention.
+   random weights from seed 0; olmo 512-token prompts, hymba and xlstm
+   1024-token prompts, so with its 128 meta tokens hymba's windowed
+   layers' ring has wrapped at prefill). Launch counters are set to 0 just
+   before each run and read just after: every global-attention layer must
+   have gone through flash_attention once per prefill and once per decode
+   call, every hymba layer's Mamba heads through ssd_scan once per
+   prefill, and every xlstm mLSTM block through mlstm_scan once per
+   prefill (12 x 8 = 96). Then for each a short torch.profiler window over
+   one prefill and a few decode ticks: device busy share and the kernels
+   that take most device time; for hymba also the device time of the
+   plain windowed attention, for xlstm that of the plain sLSTM scan.
 5. Full-width prefill last-token logits, kernel path vs plain path, same
-   weights, bf16 compute, for both models; for hymba also fp32 compute.
-6. Time each kernel, its plain version and one PyTorch library call
+   weights, bf16 compute, for the three models; for hymba and xlstm also
+   fp32 compute.
+6. The drift plane at 100,000 streams and flash_crowd_10k's join storm
+   through the grouper, each kernel path against its exact or plain path.
+7. Time each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls) at the
    serving shapes, with CUDA events after warm-up, rotating input buffers
    so that L2 does not hold them; print each beside the kernel's bound
    from its bytes and operations and the data-sheet peaks of the card.
-7. One `{"kernels": [...]}` JSON line, the nvidia-smi line again, and as
+8. One `{"kernels": [...]}` JSON line, the nvidia-smi line again, and as
    the last line `{"ok": true, "device": {...}}`.
 
 Every phase prints its seconds (`[phase]`).
@@ -81,10 +91,13 @@ from repro_torch.kernels.flash_attention import SOURCE as FA_SOURCE  # noqa: E40
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fleet_drift import SOURCE as FD_SOURCE  # noqa: E402
 from repro_torch.kernels.fleet_drift import fleet_drift  # noqa: E402
+from repro_torch.kernels.mlstm_scan import SOURCE as ML_SOURCE  # noqa: E402
+from repro_torch.kernels.mlstm_scan import mlstm_scan  # noqa: E402
 from repro_torch.kernels.pairwise_js import SOURCE as PJ_SOURCE  # noqa: E402
 from repro_torch.kernels.pairwise_js import pairwise_js  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
-                                     fleet_drift_ref, pairwise_js_ref,
+                                     fleet_drift_ref, mlstm_chunked,
+                                     mlstm_recurrent, pairwise_js_ref,
                                      ssd_chunked, ssd_recurrent)
 from repro_torch.kernels.ssd_scan import SOURCE as SSD_SOURCE  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
@@ -93,6 +106,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.param import tree_map  # noqa: E402
 from repro_torch.models.transformer import layer_plan  # noqa: E402
+from repro_torch.models.xlstm import slstm_scan  # noqa: E402
 
 DEV = torch.device("cuda")
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -105,10 +119,11 @@ LOGIT_TOL = 0.1
 
 # the two serving paths: olmo-1b (dense) and hymba-1.5b (hybrid, 128 meta
 # tokens, window 1024): 8 requests, 4 slots, 32 new tokens each
-ARCH, HYMBA = "olmo-1b", "hymba-1.5b"
+ARCH, HYMBA, XLSTM = "olmo-1b", "hymba-1.5b", "xlstm-350m"
 REQUESTS, SLOTS, MAX_NEW = 8, 4, 32
 SERVING = {ARCH: dict(prompt=512, capacity=1024),
-           HYMBA: dict(prompt=1024, capacity=1056)}
+           HYMBA: dict(prompt=1024, capacity=1056),
+           XLSTM: dict(prompt=1024, capacity=1056)}
 PROMPT, CAP = SERVING[ARCH]["prompt"], SERVING[ARCH]["capacity"]
 DECODE_T = PROMPT + MAX_NEW - 1      # longest cache prefix a decode reads
 # hymba: prefill sequence (prompt + meta), pool capacity (+ meta), the
@@ -118,6 +133,9 @@ HY_S = SERVING[HYMBA]["prompt"] + HY_META
 HY_CAP = SERVING[HYMBA]["capacity"] + HY_META
 HY_DECODE_T = HY_S + MAX_NEW - 1
 SSD_CHUNK = 64
+# xlstm-350m: 1024-token prompts; mLSTM heads 4 of 2048 / 4 = 512, the
+# chunk of apply_mlstm_block; a ragged length for the final-state check
+XL_PROMPT, XL_RAGGED, XL_HEADS, XL_P, MLSTM_CHUNK = 1024, 1000, 4, 512, 64
 
 # data-sheet peaks (dense): bytes/s of device memory, FLOP/s of bf16
 # tensor cores and of fp32 outside them; matched against nvidia-smi's name
@@ -133,9 +151,10 @@ KERNELS = [("flash_attention", FA_SOURCE,
             "src/repro/kernels/flash_attention.py:107"),
            ("fleet_drift", FD_SOURCE, "src/repro/kernels/fleet_drift.py:86"),
            ("pairwise_js", PJ_SOURCE, "src/repro/kernels/pairwise_js.py:54"),
-           ("ssd_scan", SSD_SOURCE, "src/repro/kernels/ssd_scan.py:80")]
+           ("ssd_scan", SSD_SOURCE, "src/repro/kernels/ssd_scan.py:80"),
+           ("mlstm_scan", ML_SOURCE, "src/repro/kernels/mlstm_scan.py:106")]
 # kernels that no single PyTorch call computes: their library time is null
-NO_LIBRARY_CALL = ("fleet_drift", "pairwise_js", "ssd_scan")
+NO_LIBRARY_CALL = ("fleet_drift", "pairwise_js", "ssd_scan", "mlstm_scan")
 
 # drift plane: 100,000 streams, each window 8 sequences x 32 tokens (the
 # controller's defaults), 64 buckets over the fleets' 64-token vocabulary,
@@ -320,6 +339,61 @@ def check_ssd():
     return errs[torch.bfloat16, SSD_CHUNK]
 
 
+def _mlstm_inputs(B, S, H, P, dtype, gen):
+    """q, k, v normal; input gate 2 z, forget gate 2 z + 1 (the JAX
+    sweep's draws), all in `dtype`. q, k and v are the three thirds of one
+    (B, S, H, 3P) tensor and the gates the two halves of one (B, S, 2, H)
+    tensor, so every input is a strided view, as the model passes them."""
+    q, k, v = _randn((B, S, H, 3 * P), dtype, gen).chunk(3, dim=-1)
+    g = torch.randn((B, S, 2, H), generator=gen, device=DEV) * 2
+    g[:, :, 1] += 1
+    g = g.to(dtype)
+    return q, k, v, g[:, :, 0], g[:, :, 1]
+
+
+def check_mlstm():
+    """mlstm_scan against its plain version `mlstm_chunked`, output and
+    final state: the six cases of tests/test_kernels.py::
+    test_mlstm_kernel_sweep, xlstm-350m's prefill shape (1, 1024, 4, 512)
+    bf16 at apply_mlstm_block's chunk (64), a ragged S = 1000 at that width
+    with the state also against the token-by-token oracle, and the full
+    shape in fp32 against the oracle. Returns the largest error at the
+    prefill shape, bf16."""
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, P, chunk in [(1, 64, 2, 32, 16), (2, 96, 3, 16, 32),
+                                  (1, 33, 1, 64, 32)]:
+            args = _mlstm_inputs(B, S, H, P, dtype, gen)
+            h, st = mlstm_scan(*args, chunk=chunk, return_state=True)
+            wh, wst = mlstm_chunked(*args, chunk=chunk, return_state=True)
+            name = (f"mlstm_scan sweep {str(dtype)[6:]} B{B} S{S} H{H} P{P} "
+                    f"chunk{chunk}")
+            _check(f"{name} h", h, wh, TOL[dtype])
+            for leaf, a, w in zip("Cnm", st, wst):
+                _check(f"{name} state {leaf}", a, w, TOL[dtype])
+    for S, dtype in ((XL_PROMPT, torch.bfloat16), (XL_PROMPT, torch.float32),
+                     (XL_RAGGED, torch.bfloat16)):
+        shape = (1, S, XL_HEADS, XL_P)
+        args = _mlstm_inputs(*shape, dtype, gen)
+        h, st = mlstm_scan(*args, chunk=MLSTM_CHUNK, return_state=True)
+        wh, wst = mlstm_chunked(*args, chunk=MLSTM_CHUNK, return_state=True)
+        name = f"mlstm_scan xlstm {str(dtype)[6:]} {shape} chunk{MLSTM_CHUNK}"
+        e = [_check(f"{name} h", h, wh, TOL[dtype])]
+        e += [_check(f"{name} state {leaf}", a, w, TOL[dtype])
+              for leaf, a, w in zip("Cnm", st, wst)]
+        if (S, dtype) == (XL_PROMPT, torch.bfloat16):
+            errs = e
+            continue
+        # fp32 at the prefill shape and the ragged length: also the oracle
+        rh, rst = mlstm_recurrent(*args, return_state=True)
+        if dtype == torch.float32:
+            _check(f"{name} h vs token-by-token oracle", h, rh, TOL[dtype])
+        for leaf, a, w in zip("Cnm", st, rst):
+            _check(f"{name} state {leaf} vs token-by-token oracle", a, w,
+                   TOL[dtype])
+    return max(errs)
+
+
 def _check_drift(name, toks, ref, buckets, vocab):
     """fleet_drift kernel vs plain version on the card (int32 tokens,
     fp32 reference), and the kernel's scores vs the float64 host scores
@@ -423,7 +497,7 @@ def check_pairwise_js(cap):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve olmo-1b and hymba-1.5b at full width
+# phase 4: serve olmo-1b, hymba-1.5b and xlstm-350m at full width
 # ---------------------------------------------------------------------------
 def serve_args(arch):
     sv = SERVING[arch]
@@ -433,25 +507,40 @@ def serve_args(arch):
             "--seed", "0"]
 
 
+SERVING_KERNELS = (flash_attention, ssd_scan, mlstm_scan)
+
+
+def reset_launches():
+    for k in SERVING_KERNELS:
+        k.launches = 0
+
+
+def launch_counts():
+    return {k.__name__: k.launches for k in SERVING_KERNELS}
+
+
 def expected_launches(cfg, prefills, decode_calls):
     """flash_attention: every global-attention layer once per prefill and
     once per decode call (windowed layers attend in plain PyTorch);
-    ssd_scan: every hybrid layer's Mamba heads once per prefill (decode
-    steps the state in plain PyTorch)."""
-    global_layers = sum(s.count for s in layer_plan(cfg) if s.window == 0)
+    ssd_scan: every hybrid layer's Mamba heads once per prefill;
+    mlstm_scan: every mLSTM block once per prefill (decode steps both
+    states in plain PyTorch)."""
+    plan = layer_plan(cfg)
+    global_layers = sum(s.count for s in plan
+                        if s.kind == "block" and s.window == 0)
     ssd_layers = cfg.num_layers if cfg.family == "hybrid" else 0
+    mlstm_layers = sum(s.count for s in plan if s.kind == "mlstm")
     return {"flash_attention": global_layers * (prefills + decode_calls),
-            "ssd_scan": ssd_layers * prefills}
+            "ssd_scan": ssd_layers * prefills,
+            "mlstm_scan": mlstm_layers * prefills}
 
 
 def serve_full_width(arch):
     cfg = get_config(arch)
-    flash_attention.launches = 0
-    ssd_scan.launches = 0
+    reset_launches()
     report = serve.main(serve_args(arch))
     torch.cuda.synchronize()
-    launches = {"flash_attention": flash_attention.launches,
-                "ssd_scan": ssd_scan.launches}
+    launches = launch_counts()
     out = report["outputs"]
     assert len(out) == REQUESTS, sorted(out)
     for rid, toks in out.items():
@@ -536,13 +625,16 @@ def profile_serving(arch):
         for e in top[:6]:
             print(f"[profile]   {e.device_time_total / 1e3 / n:8.3f} ms "
                   f"x{e.count // n:<4} {e.key[:90]}")
-        ssd = [e for e in pr.key_averages() if "ssd_scan_kernel" in e.key]
-        if ssd:
-            print(f"[profile]   ssd_scan_kernel: "
-                  f"{sum(e.device_time_total for e in ssd) / 1e3 / n:.3f} ms "
-                  f"of the device busy {busy / n:.3f} ms")
+        for kname in ("ssd_scan_kernel", "mlstm_scan_kernel"):
+            ev = [e for e in pr.key_averages() if kname in e.key]
+            if ev:
+                print(f"[profile]   {kname}: "
+                      f"{sum(e.device_time_total for e in ev) / 1e3 / n:.3f}"
+                      f" ms of the device busy {busy / n:.3f} ms")
     if cfg.family == "hybrid":
         profile_windowed_attention(cfg, loop.params)
+    if cfg.family == "ssm":
+        profile_slstm_scan(cfg, loop.params)
 
 
 def profile_windowed_attention(cfg, params):
@@ -570,6 +662,24 @@ def profile_windowed_attention(cfg, params):
           f"{peak:.0f} MiB of temporaries per call")
 
 
+def profile_slstm_scan(cfg, params):
+    """Time (CUDA events) of the plain sLSTM recurrence at xlstm-350m's
+    prefill shape: one layer's `slstm_scan` call (1024 steps, each a
+    batched product and the elementwise math), and the prefill's sLSTM
+    layers together."""
+    seg = next(i for i, s in enumerate(layer_plan(cfg)) if s.kind == "slstm")
+    rw = params["segments"][seg]["r_gates"][0]
+    H, P = cfg.num_heads, cfg.d_model // cfg.num_heads
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    g = _randn((1, XL_PROMPT, 4, H, P), torch.bfloat16, gen)
+    ms = _time_ms(lambda: slstm_scan(g, rw, H), [()], iters=3, warmup=1)
+    n = sum(s.count for s in layer_plan(cfg) if s.kind == "slstm")
+    print(f"[profile] {cfg.name} plain slstm_scan at gates (1, {XL_PROMPT}, "
+          f"4, {H}, {P}) bf16: {ms:.3f} ms per layer call (CUDA events, "
+          f"{ms / XL_PROMPT * 1e3:.1f} us per step), {n} sLSTM layers = "
+          f"{n * ms:.3f} ms per prefill")
+
+
 # ---------------------------------------------------------------------------
 # phase 5: full-width logits, kernel path vs plain path
 # ---------------------------------------------------------------------------
@@ -584,11 +694,9 @@ def compare_logits(arch, dtype=torch.bfloat16):
     x = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, prompt)),
                         device=DEV)
     cap += cfg.meta_tokens
-    flash_attention.launches = 0
-    ssd_scan.launches = 0
+    reset_launches()
     got, _, _ = model.prefill(params, x, cap, compute_dtype=dtype)
-    launches = {"flash_attention": flash_attention.launches,
-                "ssd_scan": ssd_scan.launches}
+    launches = launch_counts()
     assert launches == expected_launches(cfg, 1, 0), launches
     want, _, _ = model.prefill(params, x, cap, compute_dtype=dtype,
                                kernel_impl="ref")
@@ -750,7 +858,7 @@ def observe_split(refs64, windows):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the grouping plane under flash_crowd_10k's join storm
+# phase 6: the grouping plane under flash_crowd_10k's join storm
 # ---------------------------------------------------------------------------
 def _unit(key: str) -> float:
     """A deterministic number in [0, 1) from a string (no salted hash)."""
@@ -910,7 +1018,7 @@ def _explain_divergence(gk, gr, req):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: timing
+# phase 7: timing
 # ---------------------------------------------------------------------------
 def _time_ms(fn, sets, iters=50, warmup=5):
     """Mean ms per call over `iters` calls cycling through input `sets`
@@ -1141,6 +1249,52 @@ def time_pairwise_js(pk, cap):
     return rows
 
 
+def mlstm_cost(B, S, H, P, Q):
+    """(bytes, operations) the mLSTM scan must move and do at these
+    shapes in bf16 with the state out: q, k, v and the two gates read
+    once, h and the fp32 state (C, n, m) written once; per chunk of L
+    steps and head, the causal q k^T and w v triangles (L (L + 1) / 2 P
+    multiply-adds each), q C^T and the state update (L P^2 each), q . n
+    and the normaliser update (L P each), an exponential counted as
+    nothing."""
+    nbytes = 2 * (4 * B * S * H * P + 2 * B * S * H) + 4 * B * H * (
+        P * P + P + 1)
+    macs = 0
+    for t0 in range(0, S, Q):
+        L = min(Q, S - t0)
+        macs += L * (L + 1) * P + 2 * L * P * P + 2 * L * P
+    return nbytes, 2 * B * H * macs
+
+
+def time_mlstm(pk):
+    """mlstm_scan at xlstm-350m's prefill shape, bf16, apply_mlstm_block's
+    chunk, state out, rotating 10 input sets (126 MB of q, k and v, past
+    L2). Bound from `mlstm_cost`, fp32 operations (the kernel's
+    arithmetic) against the card's fp32 peak outside the tensor cores."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    B, S, H, P, Q = 1, XL_PROMPT, XL_HEADS, XL_P, MLSTM_CHUNK
+    sets = [_mlstm_inputs(B, S, H, P, bf16, gen) for _ in range(10)]
+    nbytes, flops = mlstm_cost(B, S, H, P, Q)
+
+    def kern(*a):
+        return mlstm_scan(*a, chunk=Q, return_state=True)
+
+    def plain(*a):
+        return mlstm_chunked(*a, chunk=Q, return_state=True)
+
+    r = dict(shape=f"q,k,v ({B},{S},{H},{P}) bf16, chunk {Q}, state out",
+             ms=_time_ms(kern, sets),
+             device_ms=_device_ms(kern, sets, "mlstm_scan_kernel"),
+             plain_ms=_time_ms(plain, sets, iters=10),
+             library_ms=None,
+             bound=_bound(nbytes, flops, torch.float32, pk))
+    print(f"[time] mlstm_scan least work: {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP")
+    _print_time("mlstm_scan", r)
+    return r
+
+
 def _print_time(name, r):
     bms, by = r["bound"]
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -1190,6 +1344,7 @@ def main():
     err = {"flash_attention": phase("check flash_attention",
                                     check_attention)}
     err["ssd_scan"] = phase("check ssd_scan", check_ssd)
+    err["mlstm_scan"] = phase("check mlstm_scan", check_mlstm)
     err["fleet_drift"] = phase("check fleet_drift", check_fleet_drift)
     err["pairwise_js"] = phase("check pairwise_js", check_pairwise_js, cap)
     launches = phase(f"serve {ARCH}", serve_full_width, ARCH)
@@ -1201,6 +1356,13 @@ def main():
     phase(f"logits {HYMBA}", compare_logits, HYMBA)
     # the same weights in fp32: how much of the bf16 difference is rounding
     phase(f"logits {HYMBA} fp32", compare_logits, HYMBA, torch.float32)
+    xl = phase(f"serve {XLSTM}", serve_full_width, XLSTM)
+    # 12 mLSTM blocks, each through the kernel once per prefill
+    assert xl == {"flash_attention": 0, "ssd_scan": 0,
+                  "mlstm_scan": 12 * REQUESTS}, xl
+    launches["mlstm_scan"] = xl["mlstm_scan"]
+    phase(f"logits {XLSTM}", compare_logits, XLSTM)
+    phase(f"logits {XLSTM} fp32", compare_logits, XLSTM, torch.float32)
     torch.cuda.empty_cache()
     launches["fleet_drift"], split, windows, refs = phase("drift plane",
                                                           drift_plane)
@@ -1211,6 +1373,11 @@ def main():
     fd = phase("time fleet_drift", time_fleet_drift, pk, windows, refs)
     pj = phase("time pairwise_js", time_pairwise_js, pk, cap)
     ssd = phase("time ssd_scan", time_ssd, pk)
+    ml = phase("time mlstm_scan", time_mlstm, pk)
+    # the profiler's last user: the trace of an xlstm prefill holds some
+    # 220,000 kernel records, and profiled timings after it on the card
+    # saw no kernel records at all
+    phase(f"profile {XLSTM}", profile_serving, XLSTM)
     print(f"[drift] kernel share of one observe at {DRIFT_N} streams: "
           f"{100 * fd['ms'] / split['total']:.2f}%")
     print(f"[group] kernel share of one grouping request: "
@@ -1231,6 +1398,8 @@ def main():
                err["pairwise_js"], pj[1], requests_32=pj[32]),
         _entry("ssd_scan", *src["ssd_scan"], launches["ssd_scan"],
                err["ssd_scan"], ssd),
+        _entry("mlstm_scan", *src["mlstm_scan"], launches["mlstm_scan"],
+               err["mlstm_scan"], ml),
     ]
     assert [e["name"] for e in kernels] == [k[0] for k in KERNELS]
     for e in kernels:

@@ -2,9 +2,9 @@
 
 Each architecture lives in its own module with the exact published
 dimensions; `smoke_config()` returns a reduced same-family variant used by
-CPU tests. The port registers olmo-1b (dense) and hymba-1.5b (hybrid);
-the other architectures of the JAX package's registry arrive with their
-model families (ROADMAP.md).
+CPU tests. The port registers olmo-1b (dense), hymba-1.5b (hybrid) and
+xlstm-350m (the xLSTM family); the other architectures of the JAX
+package's registry arrive with their model families (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES: Dict[str, str] = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -16,6 +16,11 @@ ssd_scan — the Mamba-2 SSD chunk scan of hymba's SSM heads, with the final
     state (a block per (batch, head) walking the chunks in order, the
     state in shared memory), CUDA C++ in `csrc/ssd_scan.cu`; replaces the
     Pallas TPU kernel of the same name.
+mlstm_scan — the chunkwise stabilised mLSTM of xLSTM's matrix-memory
+    blocks, with the final (C, n, m) state (a block per (batch, head) and
+    32 rows of the state walking the chunks in order, the rows in shared
+    memory), CUDA C++ in `csrc/mlstm_scan.cu`; replaces the Pallas TPU
+    kernel of the same name.
 
 ops.py dispatches by the tensor's device ("auto") or to the plain version
 ("ref"); ref.py holds the plain versions; _build.py compiles the CUDA

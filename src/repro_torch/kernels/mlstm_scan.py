@@ -1,0 +1,142 @@
+"""Chunkwise stabilised mLSTM scan: the hand-written Hopper kernel and its
+wrapper.
+
+The kernel (`csrc/mlstm_scan.cu`, CUDA C++ for sm_90a) replaces the JAX
+package's Pallas TPU kernel `mlstm_scan` (src/repro/kernels/mlstm_scan.py)
+and computes the same function as `ref.mlstm_chunked`, returning the final
+(C, n, m) state as well; the source's header note says what bounds it and
+how it is laid out.
+
+`mlstm_scan(q, k, v, igate, fgate)` launches the kernel for CUDA tensors
+and raises on anything the kernel does not take. For CPU tensors it
+computes the plain version `ref.mlstm_chunked` (the CPU tests' path); no
+CUDA call ever falls back to it. `mlstm_scan.launches` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import mlstm_chunked
+
+SOURCE = "mlstm_scan.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SMEM_BYTES = 232448       # csrc/mlstm_scan.cu kMaxSmemBytes
+MAX_CHUNK = 128               # the largest tile the kernel is built for
+ROWS_PER_BLOCK = 32           # csrc/mlstm_scan.cu kPT
+
+
+def chunk_tile(Q: int) -> int:
+    """The kernel's row tile for a chunk of Q steps (csrc launch_tile)."""
+    return next(t for t in (16, 32, 64, 128) if Q <= t)
+
+
+def smem_bytes(Q: int, P: int) -> int:
+    """Shared memory of one block (csrc/mlstm_scan.cu smem_floats) at the
+    tile of a chunk of Q steps: its 32 rows of C and the normaliser, the q
+    and k tiles (rows padded to 33 floats), the v columns twice, the
+    (QT, QT + 1) weights and six (QT,) vectors, in fp32."""
+    QT = chunk_tile(Q)
+    return 4 * (P * 32 + P + 2 * QT * 33 + 2 * QT * 32 + QT * (QT + 1)
+                + 6 * QT + 4)
+
+
+def _library():
+    lib = _build.load(SOURCE)
+    fn = lib.mlstm_scan_fwd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                       + [ctypes.c_int] * 5 + [ctypes.c_float]
+                       + [ctypes.c_longlong] * 18 + [ctypes.c_void_p])
+    return lib
+
+
+def _check(q, k, v, igate, fgate, Q):
+    for name, t in (("k", k), ("v", v), ("igate", igate), ("fgate", fgate)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.dim() != 4 or igate.dim() != 3:
+        raise ValueError(f"want q, k, v (B,S,H,P) and gates (B,S,H); got q "
+                         f"{tuple(q.shape)}, igate {tuple(igate.shape)}")
+    B, S, H, P = q.shape
+    if k.shape != q.shape or v.shape != q.shape \
+            or igate.shape != (B, S, H) or fgate.shape != (B, S, H):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, igate {tuple(igate.shape)}, "
+                         f"fgate {tuple(fgate.shape)} do not fit together")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q dtype {q.dtype} not in float32/bfloat16")
+    for name, t in (("k", k), ("v", v), ("igate", igate), ("fgate", fgate)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} must be q's {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dim")
+    if not 1 <= Q <= MAX_CHUNK:
+        raise ValueError(f"chunk {Q} not in [1, {MAX_CHUNK}]")
+    if B * H > 2 ** 31 - 1 or -(-P // ROWS_PER_BLOCK) > 65535:
+        raise ValueError(f"grid ({B * H}, {-(-P // ROWS_PER_BLOCK)}) too "
+                         f"large")
+    if smem_bytes(Q, P) > MAX_SMEM_BYTES:
+        raise ValueError(f"chunk {Q}, P {P} need {smem_bytes(Q, P)} bytes "
+                         f"of shared memory > {MAX_SMEM_BYTES}")
+
+
+def mlstm_scan(q, k, v, igate, fgate, *, chunk: int = 128,
+               return_state: bool = False):
+    """q, k, v: (B,S,H,P); igate, fgate: (B,S,H) raw preactivations, all in
+    one dtype (fp32 or bf16). Chunks of min(chunk, S) steps.
+
+    Any of the five may be a strided view (the model's einsum outputs, the
+    split gate projection); only the last dim of q, k and v must be
+    contiguous. Returns h (B,S,H,P) in q.dtype, and with `return_state`
+    also the final state (C (B,H,P,P), n (B,H,P), m (B,H)) in fp32.
+    """
+    if q.device.type == "cpu":
+        return mlstm_chunked(q, k, v, igate, fgate, chunk=chunk,
+                             return_state=return_state)
+    if q.device.type != "cuda":
+        raise ValueError(f"no mlstm_scan for device {q.device}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1; got {chunk}")
+    B, S, H, P = q.shape
+    Q = min(chunk, S) if S else 1
+    _check(q, k, v, igate, fgate, Q)
+    dev = q.device
+    h = torch.empty((B, S, H, P), dtype=q.dtype, device=dev)
+    state = None
+    if return_state:
+        state = (torch.empty((B, H, P, P), dtype=torch.float32, device=dev),
+                 torch.empty((B, H, P), dtype=torch.float32, device=dev),
+                 torch.empty((B, H), dtype=torch.float32, device=dev))
+    if h.numel() == 0:
+        if state is not None:
+            state[0].zero_()
+            state[1].zero_()
+            state[2].fill_(-math.inf)
+        return (h, state) if return_state else h
+    lib = _library()
+    C, n, m = state if state is not None else (None, None, None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mlstm_scan_fwd(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            igate.data_ptr(), fgate.data_ptr(), h.data_ptr(),
+            None if C is None else C.data_ptr(),
+            None if n is None else n.data_ptr(),
+            None if m is None else m.data_ptr(), B, S, H, P, Q,
+            1.0 / math.sqrt(P), *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *igate.stride(), *fgate.stride(),
+            *h.stride()[:3], stream)
+    if rc != 0:
+        raise RuntimeError(f"mlstm_scan kernel launch failed: CUDA error {rc}")
+    mlstm_scan.launches += 1
+    return (h, state) if return_state else h
+
+
+mlstm_scan.launches = 0

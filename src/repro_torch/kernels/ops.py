@@ -9,8 +9,8 @@ Every op takes `impl`:
 
 The signatures are those of the JAX package's `kernels/ops.py` without
 its `mesh`/`shard` arguments (sharding comes with the port's distribution
-module). Its op that this port has not reached yet (`mlstm`) is queued in
-ROADMAP.md.
+module); `ssd` and `mlstm` add `return_state` for the prefill's decode
+cache. Every op of the JAX module has its kernel here.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.fleet_drift import fleet_drift as _fdrift
+from repro_torch.kernels.mlstm_scan import mlstm_scan as _mlstm
 from repro_torch.kernels.pairwise_js import pairwise_js as _pjs
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
@@ -84,3 +85,20 @@ def ssd(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_state: bool = False,
         return _ssd(x, dt.to(f32), A.to(f32), Bm, Cm, D.to(f32), chunk=chunk,
                     return_state=return_state)
     raise _unknown("ssd", impl)
+
+
+def mlstm(q, k, v, igate, fgate, *, chunk: int = 128,
+          return_state: bool = False, impl: str = "auto"):
+    """Chunkwise mLSTM. q,k,v: (B,S,H,P); gates: (B,S,H) raw, q's dtype.
+
+    Returns h (B,S,H,P) in q.dtype [, final state (C (B,H,P,P), n (B,H,P),
+    m (B,H)) fp32]. "auto" runs the `mlstm_scan` kernel on a CUDA tensor and
+    the plain chunked form `ref.mlstm_chunked` on a CPU tensor; "ref" is
+    the token-by-token oracle `ref.mlstm_recurrent`."""
+    if impl == "ref":
+        return _ref.mlstm_recurrent(q, k, v, igate, fgate,
+                                    return_state=return_state)
+    if impl == "auto":
+        return _mlstm(q, k, v, igate, fgate, chunk=chunk,
+                      return_state=return_state)
+    raise _unknown("mlstm", impl)

@@ -196,3 +196,133 @@ def ssd_recurrent(x, dt, A, Bm, Cm, D, *, init_state=None,
                   + xt * D32[None, :, None])
     y = torch.stack(ys, dim=1).to(x.dtype) if S else torch.zeros_like(x)
     return (y, st) if return_state else y
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix memory): the chunked form and the token-by-token oracle
+# ---------------------------------------------------------------------------
+def _mlstm_init(B, H, P, device, init_state):
+    """(C (B,H,P,P), n (B,H,P), m (B,H)) in fp32: zeros and m = -inf, or
+    `init_state` cast to fp32."""
+    if init_state is None:
+        return (torch.zeros((B, H, P, P), dtype=F32, device=device),
+                torch.zeros((B, H, P), dtype=F32, device=device),
+                torch.full((B, H), -math.inf, dtype=F32, device=device))
+    return tuple(s.to(F32) for s in init_state)
+
+
+def mlstm_chunked(q, k, v, igate, fgate, *, chunk: int = 64, init_state=None,
+                  return_state: bool = False):
+    """Chunkwise stabilised mLSTM, the plain version of the `mlstm_scan`
+    kernel.
+
+    q, k, v: (B,S,H,P); igate, fgate: (B,S,H) raw preactivations. Chunks
+    of Q = min(chunk, S) steps, b = the inclusive cumsum of log sigmoid(f)
+    within a chunk; the (C, n, m) state is carried from chunk to chunk
+    with the log-max stabiliser m, and
+      h_i = (sum_{j<=i} (q_i . k_j) e^{b_i - b_j + i_j - m_i} v_j
+             + e^{b_i + m_prev - m_i} C q_i) / max(|n_i . q_i|, e^{-m_i}).
+    Steps past the sequence end get i = -1e30 and no decay (log sigmoid
+    taken as 0), as the Pallas kernel masks them, so the final state
+    equals `mlstm_recurrent`'s at every S. (The JAX package's XLA form
+    pads the raw forget gate with 0, i.e. log sigmoid(0) = -0.693 per
+    padded step, and decays its final state when S % chunk != 0; this
+    version does not copy that.) fp32 math, q scaled by 1/sqrt(P).
+    Returns h (B,S,H,P) in q.dtype [, (C (B,H,P,P), n (B,H,P), m (B,H))
+    fp32].
+    """
+    B, S, H, P = q.shape
+    C0, n0, m0 = _mlstm_init(B, H, P, q.device, init_state)
+    if S == 0:
+        h = torch.zeros_like(q)
+        return (h, (C0, n0, m0)) if return_state else h
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    pd = torch.nn.functional.pad
+    qf = q.to(F32) * (1.0 / math.sqrt(P))
+    kf, vf = k.to(F32), v.to(F32)
+    ig = igate.to(F32)
+    lf = torch.nn.functional.logsigmoid(fgate.to(F32))
+    if pad:
+        qf, kf, vf = (pd(t, (0, 0, 0, 0, 0, pad)) for t in (qf, kf, vf))
+        ig = pd(ig, (0, 0, 0, pad), value=-1e30)        # never written
+        lf = pd(lf, (0, 0, 0, pad))                     # no decay
+    n_ch = (S + pad) // Q
+    qc = qf.reshape(B, n_ch, Q, H, P)
+    kc = kf.reshape(B, n_ch, Q, H, P)
+    vc = vf.reshape(B, n_ch, Q, H, P)
+    ig = ig.reshape(B, n_ch, Q, H)
+    b = torch.cumsum(lf.reshape(B, n_ch, Q, H), dim=2)  # inclusive
+    b_last = b[:, :, -1, :]                             # (B,n,H)
+
+    # the recurrence over chunks: a_j = i_j + (b_last - b_j) is the log
+    # weight of step j toward the chunk end
+    a = ig + (b_last[:, :, None, :] - b)                # (B,n,Q,H)
+    a_max = a.amax(dim=2)
+    C, nv, m = C0, n0, m0
+    Cp, np_, mp = [], [], []
+    for c in range(n_ch):
+        Cp.append(C)
+        np_.append(nv)
+        mp.append(m)
+        m_new = torch.maximum(b_last[:, c] + m, a_max[:, c])     # (B,H)
+        w_old = torch.exp(b_last[:, c] + m - m_new)
+        w_in = torch.exp(a[:, c] - m_new[:, None, :])            # (B,Q,H)
+        C = w_old[:, :, None, None] * C + torch.einsum(
+            "bqh,bqhp,bqhr->bhpr", w_in, vc[:, c], kc[:, c])
+        nv = w_old[:, :, None] * nv + torch.einsum("bqh,bqhp->bhp", w_in,
+                                                   kc[:, c])
+        m = m_new
+    Cp = torch.stack(Cp, dim=1)                          # (B,n,H,P,P)
+    np_ = torch.stack(np_, dim=1)                        # (B,n,H,P)
+    mp = torch.stack(mp, dim=1)                          # (B,n,H)
+
+    # intra-chunk weights (masked before the exponential, whose argument
+    # is positive above the diagonal) and the inter-chunk term
+    d = b[:, :, :, None, :] - b[:, :, None, :, :] + ig[:, :, None, :, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=q.device).tril()
+    d = torch.where(mask[None, None, :, :, None], d, -math.inf)
+    d_inter = b + mp[:, :, None, :]                      # (B,n,Q,H)
+    m_loc = torch.clamp(torch.maximum(d.amax(dim=3), d_inter), min=-1e30)
+    w_intra = torch.exp(d - m_loc[:, :, :, None, :])     # (B,n,Q,Q,H)
+    w_inter = torch.exp(d_inter - m_loc)                 # (B,n,Q,H)
+    wqk = torch.einsum("bnihp,bnjhp->bnijh", qc, kc) * w_intra
+    h_num = torch.einsum("bnijh,bnjhp->bnihp", wqk, vc) + torch.einsum(
+        "bnihr,bnhpr->bnihp", qc, Cp) * w_inter[..., None]
+    nq = wqk.sum(dim=3) + torch.einsum("bnihp,bnhp->bnih", qc, np_) * w_inter
+    denom = torch.maximum(nq.abs(), torch.exp(-m_loc))
+    h = (h_num / denom[..., None]).reshape(B, n_ch * Q, H, P)[:, :S]
+    h = h.to(q.dtype)
+    return (h, (C, nv, m)) if return_state else h
+
+
+def mlstm_recurrent(q, k, v, igate, fgate, *, init_state=None,
+                    return_state: bool = False):
+    """Token-by-token stabilised mLSTM, the oracle (arXiv:2405.04517 eq.
+    19-27). q, k, v: (B,S,H,P); igate, fgate: (B,S,H) raw preactivations.
+    Per step, in fp32: m' = max(log sigmoid(f) + m, i), C' = e^{log
+    sigmoid(f) + m - m'} C + e^{i - m'} v k^T (n likewise with k),
+    h = C' q / max(|n' . q|, e^{-m'}), q scaled by 1/sqrt(P). Returns
+    h (B,S,H,P) in q.dtype [, (C, n, m) fp32]."""
+    B, S, H, P = q.shape
+    scale = 1.0 / math.sqrt(P)
+    C, n, m = _mlstm_init(B, H, P, q.device, init_state)
+    hs = []
+    for t in range(S):
+        lf = torch.nn.functional.logsigmoid(fgate[:, t].to(F32))
+        it = igate[:, t].to(F32)
+        m_new = torch.maximum(lf + m, it)
+        w_old = torch.exp(lf + m - m_new)
+        w_in = torch.exp(it - m_new)
+        kt, vt = k[:, t].to(F32), v[:, t].to(F32)
+        C = w_old[..., None, None] * C + w_in[..., None, None] * \
+            torch.einsum("bhp,bhr->bhpr", vt, kt)
+        n = w_old[..., None] * n + w_in[..., None] * kt
+        qt = q[:, t].to(F32) * scale
+        num = torch.einsum("bhpr,bhr->bhp", C, qt)
+        den = torch.maximum(torch.einsum("bhp,bhp->bh", n, qt).abs(),
+                            torch.exp(-m_new))
+        hs.append(num / den[..., None])
+        m = m_new
+    h = torch.stack(hs, dim=1).to(q.dtype) if S else torch.zeros_like(q)
+    return (h, (C, n, m)) if return_state else h

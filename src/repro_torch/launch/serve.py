@@ -7,9 +7,13 @@ using the slot-pool KV cache, on the GPU.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --full --requests 8 --num-slots 4 --prompt-len 1024 --max-new 32 \
         --capacity 1056
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+        --full --requests 8 --num-slots 4 --prompt-len 1024 --max-new 32 \
+        --capacity 1056
 
 `--capacity` is a request's prompt + generation budget; the pool adds the
-model's meta tokens (hymba: 128). Without `--full` it serves the
+model's meta tokens (hymba: 128); xlstm-350m's recurrent cache does not
+grow with it, but admission still checks it. Without `--full` it serves the
 smoke-scale config (vocabulary capped at 256), as the JAX launcher does;
 `--full` serves the published config. It
 runs on CUDA unless `--device cpu` is given, and raises when CUDA is
@@ -63,7 +67,7 @@ def _run_single(args, model, params, pending):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="olmo-1b",
-                    help="olmo-1b or hymba-1.5b")
+                    help="olmo-1b, hymba-1.5b or xlstm-350m")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--num-slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=24)

@@ -17,7 +17,8 @@ def params_from_numpy(tree, *, device="cuda"):
     """Nested dicts/lists of numpy arrays -> the same tree of tensors on
     `device`, in the arrays' own dtype. The layouts are the same in both
     packages: `embed.table`, `segments[i]` stacked on a leading layer
-    axis, `attn.{wq,wk,wv,wo}`, `mlp.{w_gate,w_up,w_down}`."""
+    axis, `attn.{wq,wk,wv,wo}`, `mlp.{w_gate,w_up,w_down}`, the Mamba and
+    the mLSTM / sLSTM leaves under their blocks' keys."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device=dev) for k, v in tree.items()}

@@ -1,5 +1,5 @@
-"""Transformer layers of the ported families: norms (non-parametric
-LayerNorm, RMSNorm), RoPE, attention (full, sliding window with an
+"""Transformer layers of the ported families: norms (LayerNorm with or
+without an affine, RMSNorm), RoPE, attention (full, sliding window with an
 always-visible meta-token prefix, decode against a full or ring cache), the
 SwiGLU MLP, tied or untied embedding and unembedding.
 
@@ -10,10 +10,10 @@ when the caller already holds them in it); norms and softmax run in fp32.
 Full attention goes through `kernels.ops.attention`: the Hopper kernel
 for CUDA tensors, the plain version for CPU tensors. Windowed attention
 (blockwise window plus meta prefix) and ring-cache decode are plain
-PyTorch, as the JAX package runs them in XLA. LayerNorm with an affine,
-GELU, qk-norm and tensor-parallel head padding of the JAX module arrive
-with the families that use them (ROADMAP.md, queue 1);
-`transformer.check_ported` refuses such configs.
+PyTorch, as the JAX package runs them in XLA. GELU, qk-norm and
+tensor-parallel head padding of the JAX module arrive with the families
+that use them (ROADMAP.md, queue 1); `transformer.check_ported` refuses
+such configs.
 """
 from __future__ import annotations
 
@@ -36,14 +36,17 @@ F32 = torch.float32
 def norm_spec(cfg: ModelConfig):
     if cfg.norm == "rmsnorm":
         return {"scale": Spec((cfg.d_model,), "ones")}
+    if cfg.norm == "layernorm":
+        return {"scale": Spec((cfg.d_model,), "ones"),
+                "bias": Spec((cfg.d_model,), "zeros")}
     if cfg.norm == "nonparam_ln":   # olmo: no learnable affine
         return {}
     raise ValueError(cfg.norm)
 
 
 def apply_norm(cfg: ModelConfig, params, x, eps: float = 1e-5):
-    """RMSNorm, or non-parametric LayerNorm (population variance, as
-    jnp.var), in fp32."""
+    """RMSNorm, or LayerNorm (population variance, as jnp.var) with an
+    affine ("layernorm") or without ("nonparam_ln"), in fp32."""
     xf = x.to(F32)
     if cfg.norm == "rmsnorm":
         ms = xf.pow(2).mean(dim=-1, keepdim=True)
@@ -52,6 +55,8 @@ def apply_norm(cfg: ModelConfig, params, x, eps: float = 1e-5):
         mu = xf.mean(dim=-1, keepdim=True)
         var = xf.var(dim=-1, keepdim=True, correction=0)
         y = (xf - mu) * torch.rsqrt(var + eps)
+        if cfg.norm == "layernorm":
+            y = y * params["scale"].to(F32) + params["bias"].to(F32)
     return y.to(x.dtype)
 
 

@@ -13,6 +13,7 @@ when it is missing (pass device="cpu" for the CPU).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -64,13 +65,19 @@ class Model:
 
     def init_cache(self, batch: int, cap: int, dtype=torch.bfloat16,
                    device="cuda"):
-        """Zeroed decode cache, every leaf in `dtype` (the Mamba state
-        included), bf16 by default like the JAX package's, whatever the
-        compute dtype."""
+        """A fresh decode cache as in the JAX package's: a "neg_inf" leaf
+        (the xLSTM stabilisers m) fp32 filled with -inf, every other leaf
+        zeros in `dtype` (the Mamba state and the xLSTM C, n, h, c
+        included), bf16 by default whatever the compute dtype."""
         dev = resolve_device(device)
-        return P.tree_map(
-            lambda s: torch.zeros(s.shape, dtype=dtype, device=dev),
-            self.cache_spec(batch, cap))
+
+        def leaf(s):
+            if s.init == "neg_inf":
+                return torch.full(s.shape, -math.inf, dtype=torch.float32,
+                                  device=dev)
+            return torch.zeros(s.shape, dtype=dtype, device=dev)
+
+        return P.tree_map(leaf, self.cache_spec(batch, cap))
 
 
 def build_model(cfg: ModelConfig) -> Model:

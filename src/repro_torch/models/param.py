@@ -20,7 +20,7 @@ class Spec:
     """One parameter: its shape and init rule. (The JAX Spec also names a
     logical sharding axis per dim; the port does not shard yet.)"""
     shape: Tuple[int, ...]
-    init: str = "normal"              # normal | zeros | ones | embed
+    init: str = "normal"              # normal | zeros | ones | neg_inf | embed
     scale: float = 1.0                # fan-in style scale multiplier
 
 
@@ -56,6 +56,8 @@ def _init_leaf(spec: Spec, generator, dtype):
         return torch.zeros(spec.shape, dtype=dtype, device=dev)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=dev)
+    if spec.init == "neg_inf":
+        return torch.full(spec.shape, -math.inf, dtype=dtype, device=dev)
     if spec.init == "normal":
         # truncated-normal, fan-in scaled on the last contracting dim
         fan_in = (spec.shape[0] if len(spec.shape) == 1

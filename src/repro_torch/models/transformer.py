@@ -1,15 +1,18 @@
-"""Model assembly for the dense and hybrid families: layer plan, spec trees,
-forward / prefill / decode.
+"""Model assembly for the dense, hybrid and xLSTM (SSM) families: layer
+plan, spec trees, forward / prefill / decode.
 
 Mirrors the JAX package's `models/transformer.py`. A model is a sequence
-of segments, runs of consecutive layers with the same attention window
-whose parameters are stacked on a leading layer axis
+of segments whose parameters are stacked on a leading layer axis
 (`params["segments"][i]`, as in the JAX tree); the JAX `lax.scan` over a
-segment's layers is a Python loop here. A hybrid (hymba) block runs
-attention and Mamba heads side by side on the same normed input and mixes
-their RMS-normed outputs; meta tokens are prepended to every sequence.
-What the ported configs do not use (MoE, the xLSTM family, LayerNorm with
-an affine, GELU, qk-norm, an embedding frontend, non-causal attention)
+segment's layers is a Python loop here. For the attention families a
+segment is a run of consecutive blocks with the same attention window; a
+hybrid (hymba) block runs attention and Mamba heads side by side on the
+same normed input and mixes their RMS-normed outputs, and meta tokens are
+prepended to every sequence. The xLSTM family alternates mLSTM and sLSTM
+blocks (`models/xlstm.py`), one segment per run of each kind; its prefill
+builds the recurrent decode cache (`_prefill_recurrent`) and its decode
+ignores the position. What the ported configs do not use (MoE, GELU in an
+attention MLP, qk-norm, an embedding frontend, non-causal attention)
 arrives with the slices that need it (ROADMAP.md, queue 1).
 
 `kernel_impl` ("auto" or "ref") is handed to every kernel op of a call:
@@ -23,20 +26,25 @@ from typing import List
 
 import torch
 
-from repro_torch.configs.base import DENSE, HYBRID, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.param import Spec, tree_map
 
 
 def check_ported(cfg: ModelConfig):
     """Raise NotImplementedError for a config that uses anything the port
-    does not have yet."""
+    does not have yet. The xLSTM blocks never read `cfg.act`, so the SSM
+    family passes with the "gelu" its configs name."""
     missing = [what for what, absent in [
-        (f"family {cfg.family!r}", cfg.family not in (DENSE, HYBRID)),
+        (f"family {cfg.family!r}", cfg.family not in (DENSE, HYBRID, SSM)),
         ("MoE", cfg.moe is not None),
-        (f"norm {cfg.norm!r}", cfg.norm not in ("nonparam_ln", "rmsnorm")),
-        (f"activation {cfg.act!r}", cfg.act != "swiglu"),
+        (f"norm {cfg.norm!r}",
+         cfg.norm not in ("nonparam_ln", "rmsnorm", "layernorm")),
+        (f"activation {cfg.act!r}",
+         cfg.act != "swiglu" and not (cfg.family == SSM
+                                      and cfg.act == "gelu")),
         ("qk-norm", cfg.qk_norm),
         ("non-causal attention", not cfg.causal),
         ("an embedding frontend", cfg.embedding_frontend),
@@ -49,22 +57,33 @@ def check_ported(cfg: ModelConfig):
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
+    kind: str          # "block" | "mlstm" | "slstm"
     count: int
-    window: int = 0    # 0 = full attention
+    window: int = 0    # 0 = full attention (block kind only)
 
 
 def layer_plan(cfg: ModelConfig) -> List[Segment]:
-    """Consecutive layers grouped by attention window (hymba: global x1,
-    window x14, global x1, window x15, global x1)."""
+    """The xLSTM family: a repeating unit of (slstm_every - 1) mLSTM blocks
+    then one sLSTM block (xlstm-350m: mLSTM x1, sLSTM x1, twelve times), or
+    mLSTM blocks only when slstm_every does not divide the depth. The
+    attention families: consecutive layers grouped by attention window
+    (hymba: global x1, window x14, global x1, window x15, global x1)."""
+    if cfg.family == SSM:
+        e = cfg.ssm.slstm_every
+        if e > 0 and cfg.num_layers % e == 0:
+            unit = [Segment("mlstm", e - 1)] if e > 1 else []
+            unit.append(Segment("slstm", 1))
+            return unit * (cfg.num_layers // e)
+        return [Segment("mlstm", cfg.num_layers)]
     segs: List[Segment] = []
     for i in range(cfg.num_layers):
         w = (cfg.sliding_window
              if cfg.sliding_window and i not in cfg.global_attn_layers
              else 0)
         if segs and segs[-1].window == w:
-            segs[-1] = Segment(segs[-1].count + 1, w)
+            segs[-1] = Segment("block", segs[-1].count + 1, w)
         else:
-            segs.append(Segment(1, w))
+            segs.append(Segment("block", 1, w))
     return segs
 
 
@@ -97,9 +116,17 @@ def build_spec(cfg: ModelConfig):
             "final_norm": L.norm_spec(cfg)}
     if cfg.meta_tokens:
         spec["meta"] = Spec((cfg.meta_tokens, cfg.d_model), "embed")
-    spec["segments"] = [_stack_spec(_block_spec(cfg), seg.count)
+    spec["segments"] = [_stack_spec(_segment_spec(cfg, seg.kind), seg.count)
                         for seg in layer_plan(cfg)]
     return spec
+
+
+def _segment_spec(cfg: ModelConfig, kind: str):
+    if kind == "mlstm":
+        return xlstm_lib.mlstm_block_spec(cfg)
+    if kind == "slstm":
+        return xlstm_lib.slstm_block_spec(cfg)
+    return _block_spec(cfg)
 
 
 def cache_spec(cfg: ModelConfig, batch: int, cap: int):
@@ -108,12 +135,19 @@ def cache_spec(cfg: ModelConfig, batch: int, cap: int):
     (layers, batch, kv_cap, K, hd), kv_cap = cap for global layers and
     min(window, cap) for a ring; a ring with meta tokens adds mk, mv
     (layers, batch, meta, K, hd); a hybrid block adds its Mamba cache
-    {"conv" (layers, batch, W-1, di), "state" (layers, batch, H, P, N)}."""
+    {"conv" (layers, batch, W-1, di), "state" (layers, batch, H, P, N)}.
+    An mLSTM segment: C (layers, batch, H, P, P), n (layers, batch, H, P),
+    m (layers, batch, H) "neg_inf", conv (layers, batch, W-1, di); an sLSTM
+    segment: h, c, n, m (layers, batch, H, P), m "neg_inf", conv (layers,
+    batch, W-1, D). `cap` does not enter the recurrent caches."""
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     meta = cfg.meta_tokens
     segs = []
     for seg in layer_plan(cfg):
         n, w = seg.count, seg.window
+        if seg.kind != "block":
+            segs.append(_recurrent_cache_spec(cfg, seg.kind, n, batch))
+            continue
         kv_cap = cap if w == 0 else min(w, cap)
         c = {"k": Spec((n, batch, kv_cap, K, hd), "zeros"),
              "v": Spec((n, batch, kv_cap, K, hd), "zeros")}
@@ -129,6 +163,23 @@ def cache_spec(cfg: ModelConfig, batch: int, cap: int):
                               "zeros")}
         segs.append(c)
     return {"segments": segs}
+
+
+def _recurrent_cache_spec(cfg: ModelConfig, kind: str, n: int, batch: int):
+    W = cfg.ssm.conv_width
+    if kind == "mlstm":
+        di, H, P = xlstm_lib.mlstm_heads(cfg)
+        return {"C": Spec((n, batch, H, P, P), "zeros"),
+                "n": Spec((n, batch, H, P), "zeros"),
+                "m": Spec((n, batch, H), "neg_inf"),
+                "conv": Spec((n, batch, W - 1, di), "zeros")}
+    H = cfg.num_heads
+    P = cfg.d_model // H
+    return {"h": Spec((n, batch, H, P), "zeros"),
+            "c": Spec((n, batch, H, P), "zeros"),
+            "n": Spec((n, batch, H, P), "zeros"),
+            "m": Spec((n, batch, H, P), "neg_inf"),
+            "conv": Spec((n, batch, W - 1, cfg.d_model), "zeros")}
 
 
 # ---------------------------------------------------------------------------
@@ -206,8 +257,10 @@ def forward(cfg: ModelConfig, params, inputs, *,
     """Full-sequence forward. inputs: int tokens (B,S). Meta tokens are
     prepended internally and stripped from the logits.
     Returns (logits (B,S,V), aux, caches|None); aux is 0 for these
-    families, caches a list per segment of {"k","v": (n,B,S+meta,K,hd)}
-    [+ "mamba": {"conv","state"} stacked over the segment's layers]."""
+    families, caches (attention families only: the xLSTM prefill builds
+    its recurrent cache in `_prefill_recurrent`) a list per segment of
+    {"k","v": (n,B,S+meta,K,hd)} [+ "mamba": {"conv","state"} stacked over
+    the segment's layers]."""
     x = L.embed_tokens(params["embed"], inputs, compute_dtype)
     B = x.shape[0]
     meta = cfg.meta_tokens
@@ -220,10 +273,17 @@ def forward(cfg: ModelConfig, params, inputs, *,
     for seg, segp in zip(layer_plan(cfg), params["segments"]):
         layer_caches = []
         for i in range(seg.count):
-            x, c = _block_forward(cfg, _layer(segp, i), x, positions,
-                                  window=seg.window,
-                                  collect_cache=collect_cache,
-                                  kernel_impl=kernel_impl)
+            lp = _layer(segp, i)
+            if seg.kind == "mlstm":
+                x, c = xlstm_lib.apply_mlstm_block(cfg, lp, x,
+                                                   kernel_impl=kernel_impl)
+            elif seg.kind == "slstm":
+                x, c = xlstm_lib.apply_slstm_block(cfg, lp, x)
+            else:
+                x, c = _block_forward(cfg, lp, x, positions,
+                                      window=seg.window,
+                                      collect_cache=collect_cache,
+                                      kernel_impl=kernel_impl)
             layer_caches.append(c)
         if collect_cache:
             caches.append(_stack_layers(layer_caches))
@@ -249,7 +309,11 @@ def prefill(cfg: ModelConfig, params, inputs, cap: int, *,
     in `cache_dtype`; the Mamba cache keeps its conv rows in the compute
     dtype and its state in fp32, as in the JAX package (the serving pool
     casts every leaf on write). Returns (last_logits (B,V), cache_tree,
-    next_pos = S + meta)."""
+    next_pos = S + meta). The xLSTM family goes to `_prefill_recurrent`."""
+    if cfg.family == SSM:
+        return _prefill_recurrent(cfg, params, inputs,
+                                  compute_dtype=compute_dtype,
+                                  kernel_impl=kernel_impl)
     logits, _, kv_caches = forward(cfg, params, inputs,
                                    compute_dtype=compute_dtype,
                                    collect_cache=True,
@@ -292,17 +356,47 @@ def _ring_from_full(k, v, w: int, meta: int, S_tot: int, cache_dtype):
     return c
 
 
+def _prefill_recurrent(cfg: ModelConfig, params, inputs, *, compute_dtype,
+                       kernel_impl: str):
+    """xLSTM prefill: the full prompt through every block, each returning
+    its final recurrent state and conv rows (mLSTM state from `ops.mlstm`,
+    fp32; conv rows in the compute dtype), stacked per segment. Returns
+    (last_logits (B,V), cache_tree, next_pos = S)."""
+    x = L.embed_tokens(params["embed"], inputs, compute_dtype)
+    segs = []
+    for seg, segp in zip(layer_plan(cfg), params["segments"]):
+        states = []
+        for i in range(seg.count):
+            if seg.kind == "mlstm":
+                x, st = xlstm_lib.mlstm_block_states(
+                    cfg, _layer(segp, i), x, kernel_impl=kernel_impl)
+            else:
+                x, st = xlstm_lib.slstm_block_states(cfg, _layer(segp, i), x)
+            states.append(st)
+        segs.append(_stack_layers(states))
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.unembed(cfg, params["embed"], x[:, -1:])
+    return logits[:, -1], {"segments": segs}, inputs.shape[1]
+
+
 def decode_step(cfg: ModelConfig, params, token, cache, pos: int, *,
                 compute_dtype=torch.bfloat16, kernel_impl: str = "auto"):
     """One-token decode. token: (B,1) int; pos: absolute position of the
-    token (meta tokens included). The cache is updated in place.
+    token (meta tokens included; the xLSTM family does not read it). The
+    cache is updated in place.
     Returns (logits (B,1,V), cache)."""
     x = L.embed_tokens(params["embed"], token, compute_dtype)
     for seg, segp, segc in zip(layer_plan(cfg), params["segments"],
                                cache["segments"]):
         for i in range(seg.count):
-            x = _block_decode(cfg, _layer(segp, i), x, _layer(segc, i), pos,
-                              window=seg.window, kernel_impl=kernel_impl)
+            lp, lc = _layer(segp, i), _layer(segc, i)
+            if seg.kind == "mlstm":
+                x, _ = xlstm_lib.apply_mlstm_block(cfg, lp, x, cache=lc)
+            elif seg.kind == "slstm":
+                x, _ = xlstm_lib.apply_slstm_block(cfg, lp, x, cache=lc)
+            else:
+                x = _block_decode(cfg, lp, x, lc, pos, window=seg.window,
+                                  kernel_impl=kernel_impl)
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(cfg, params["embed"], x)
     return logits, cache

@@ -1,0 +1,306 @@
+"""xLSTM blocks of the SSM family: mLSTM (matrix memory, chunkwise
+parallel) and sLSTM (scalar memory, strictly recurrent), arXiv:2405.04517.
+
+Mirrors the JAX package's `models/xlstm.py` at the same names, shapes and
+parameter trees. The mLSTM block's full-sequence scan goes through
+`kernels.ops.mlstm` (the Hopper kernel `mlstm_scan` for CUDA tensors, the
+plain chunked form `ref.mlstm_chunked` for CPU tensors), which also
+returns the final (C, n, m) state for the prefill's decode cache. The
+decode step `mlstm_step` and the sLSTM recurrence `slstm_scan` are plain
+PyTorch, as the JAX package runs them in XLA: the sLSTM input gates are
+projected for the whole sequence before its loop, and each step is one
+batched product (`baddbmm`) plus the elementwise math.
+
+The prefill state is the token-by-token recurrence's at every sequence
+length. (The JAX `mlstm_chunked` decays its final state over the padded
+steps of a ragged last chunk; ROADMAP.md, queue 3.) Decode updates the
+cache IN PLACE (the JAX version returns new arrays): the serving loop
+decodes contiguous slots on a view of its pool and keeps no returned
+cache. The sequence-parallel mLSTM of the JAX module
+(`mlstm_state_summary`, `combine_mlstm_states`,
+`apply_mlstm_block_seqpar`) arrives with the port's distribution module
+(ROADMAP.md, queue 1).
+
+Stabilisation follows the paper: running log-max state m with
+  m_t = max(logsig(f) + m_{t-1}, i_t)
+  C_t = exp(logsig(f) + m_{t-1} - m_t) C_{t-1} + exp(i_t - m_t) v k^T
+  h_t = (C_t q_t) / max(|n_t . q_t|, exp(-m_t))
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_norm
+from repro_torch.models.param import Spec
+from repro_torch.models.ssm import _causal_conv
+
+F32 = torch.float32
+
+
+def mlstm_heads(cfg: ModelConfig):
+    """(inner width di = expand d_model, heads H, head dim P = di / H)."""
+    di = cfg.ssm.expand * cfg.d_model
+    return di, cfg.num_heads, di // cfg.num_heads
+
+
+# ---------------------------------------------------------------------------
+# Cells
+# ---------------------------------------------------------------------------
+def mlstm_step(q, k, v, igate, fgate, state):
+    """Decode step. q,k,v: (B,H,P); gates (B,H); state (C,n,m) ->
+    (h (B,H,P) in q.dtype, new state (C,n,m) fp32)."""
+    C, nvec, m = (s.to(F32) for s in state)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf = q.to(F32) * scale
+    kf, vf = k.to(F32), v.to(F32)
+    lf = F.logsigmoid(fgate.to(F32))
+    ig = igate.to(F32)
+    m_new = torch.maximum(lf + m, ig)
+    w_old = torch.exp(lf + m - m_new)
+    w_in = torch.exp(ig - m_new)
+    C_new = w_old[..., None, None] * C + w_in[..., None, None] * \
+        torch.einsum("bhp,bhr->bhpr", vf, kf)
+    n_new = w_old[..., None] * nvec + w_in[..., None] * kf
+    num = torch.einsum("bhpr,bhr->bhp", C_new, qf)
+    den = torch.maximum(torch.einsum("bhp,bhp->bh", n_new, qf).abs(),
+                        torch.exp(-m_new))
+    h = (num / den[..., None]).to(q.dtype)
+    return h, (C_new, n_new, m_new)
+
+
+def slstm_scan(x_gates, r_weights, H: int, init_state=None):
+    """x_gates: (B,S,4,H,P) input-driven gate preactivations (i,f,z,o);
+    r_weights: (4,H,P,P) recurrent block-diagonal weights, applied as
+    "bhp,ghpr->bghr" (p contracts, r is the output). Returns h (B,S,H,P)
+    fp32 and the final state (h, c, n, m), each (B,H,P) fp32."""
+    B, S, _, Hh, P = x_gates.shape
+    dev = x_gates.device
+    if init_state is None:
+        h = torch.zeros((Hh, B, P), dtype=F32, device=dev)
+        c = torch.zeros_like(h)
+        n = torch.zeros_like(h)
+        m = torch.full_like(h, -math.inf)
+    else:
+        h, c, n, m = (s.to(F32).transpose(0, 1) for s in init_state)
+    # one batched product per step: per head (B, P) @ (P, 4P), the four
+    # gates side by side in the output, added to the step's input gates
+    rw = r_weights.to(F32).permute(1, 2, 0, 3).reshape(Hh, P, 4 * P)
+    xg = x_gates.to(F32).permute(1, 3, 0, 2, 4).reshape(S, Hh, B, 4 * P)
+    hs = torch.empty((S, Hh, B, P), dtype=F32, device=dev)
+    for t in range(S):
+        g = torch.baddbmm(xg[t], h, rw)                  # (H, B, 4P)
+        it, ft, zt, ot = g.split(P, dim=-1)
+        lf_m = F.logsigmoid(ft) + m
+        m_new = torch.maximum(lf_m, it)
+        i_p = torch.exp(it - m_new)
+        f_p = torch.exp(lf_m - m_new)
+        c = torch.addcmul(f_p * c, i_p, torch.tanh(zt))
+        n = torch.addcmul(i_p, f_p, n)
+        h = torch.div(torch.sigmoid(ot) * c, torch.clamp(n, min=1.0),
+                      out=hs[t])
+        m = m_new
+    state = tuple(s.transpose(0, 1) for s in (h, c, n, m))
+    return hs.permute(2, 0, 1, 3), state
+
+
+# ---------------------------------------------------------------------------
+# Block specs
+# ---------------------------------------------------------------------------
+def _ln_spec(d: int):
+    return {"scale": Spec((d,), "ones"), "bias": Spec((d,), "zeros")}
+
+
+def mlstm_block_spec(cfg: ModelConfig):
+    d = cfg.d_model
+    di, H, P = mlstm_heads(cfg)
+    return {
+        "norm": _ln_spec(d),
+        "w_up": Spec((d, 2 * di)),
+        "conv": Spec((cfg.ssm.conv_width, di)),
+        "wq": Spec((di, H, P)),
+        "wk": Spec((di, H, P)),
+        "wv": Spec((di, H, P)),
+        "w_if": Spec((di, 2, H)),
+        "b_if": Spec((2, H), "zeros"),
+        "gn": Spec((di,), "ones"),
+        "w_down": Spec((di, d), scale=1.0 / math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def slstm_block_spec(cfg: ModelConfig):
+    d = cfg.d_model
+    H = cfg.num_heads
+    P = d // H
+    ff = int(4 * d * 2 / 3)
+    ff = ((ff + 63) // 64) * 64
+    return {
+        "norm": _ln_spec(d),
+        "conv": Spec((cfg.ssm.conv_width, d)),
+        "w_gates": Spec((d, 4, H, P)),
+        "r_gates": Spec((4, H, P, P), scale=0.5),
+        "b_gates": Spec((4, H, P), "zeros"),
+        "gn": Spec((d,), "ones"),
+        "ffn": {"w_gate": Spec((d, ff)),
+                "w_up": Spec((d, ff)),
+                "w_down": Spec((ff, d),
+                               scale=1.0 / math.sqrt(2 * cfg.num_layers))},
+    }
+
+
+# ---------------------------------------------------------------------------
+# Block applications
+# ---------------------------------------------------------------------------
+def _group_norm(p, h, dt):
+    """The blocks' "group norm": one RMS over the whole width, eps 1e-6,
+    scaled by p["gn"], in fp32."""
+    hf = h.to(F32)
+    return (hf * torch.rsqrt(hf.pow(2).mean(-1, keepdim=True) + 1e-6)
+            * p["gn"].to(F32)).to(dt)
+
+
+def _mlstm_in(cfg: ModelConfig, p, x, conv_cache=None):
+    """Pre-norm, up-projection, causal conv and the q, k, v and gate
+    projections of an mLSTM block. Returns (q, k, v (B,S,H,P), ig, fg
+    (B,S,H) views of one projection, z (B,S,di), the conv's new cache:
+    its last W-1 raw inputs)."""
+    dt = x.dtype
+    xin = apply_norm(cfg, p["norm"], x)
+    ux_raw, z = (xin @ p["w_up"].to(dt)).chunk(2, dim=-1)
+    ux, new_conv = _causal_conv(ux_raw, p["conv"], cache=conv_cache)
+    ux = F.silu(ux)
+    q = torch.einsum("bse,ehp->bshp", ux, p["wq"].to(dt))
+    k = torch.einsum("bse,ehp->bshp", ux, p["wk"].to(dt))
+    v = torch.einsum("bse,ehp->bshp", ux, p["wv"].to(dt))
+    gates = torch.einsum("bse,egh->bsgh", ux, p["w_if"].to(dt)) \
+        + p["b_if"].to(dt)
+    return q, k, v, gates[:, :, 0], gates[:, :, 1], z, new_conv
+
+
+def _mlstm_out(p, x, h, z):
+    """Group norm, output gate, down-projection and residual."""
+    B, S, di = z.shape
+    dt = x.dtype
+    h = _group_norm(p, h.reshape(B, S, di), dt) * F.silu(z)
+    return x + h @ p["w_down"].to(dt)
+
+
+def apply_mlstm_block(cfg: ModelConfig, p, x, *, chunk: int = 64,
+                      cache=None, kernel_impl: str = "auto"):
+    """Pre-LN mLSTM block. x: (B,S,D) -> (out, cache or None).
+
+    Without a cache, the full sequence through `ops.mlstm(impl=
+    kernel_impl)`. With a cache {"C","n","m","conv"} (x: (B,1,D)), one
+    decode step whose new state and conv rows are written into the cache
+    in place (cast to each leaf's dtype, as the JAX serving pool casts on
+    write); the cache is returned."""
+    conv_cache = None if cache is None else cache["conv"]
+    q, k, v, ig, fg, z, new_conv = _mlstm_in(cfg, p, x, conv_cache)
+    if cache is None:
+        h = ops.mlstm(q, k, v, ig, fg, chunk=chunk, impl=kernel_impl)
+        return _mlstm_out(p, x, h, z), None
+    state = (cache["C"], cache["n"], cache["m"])
+    h, (C, n, m) = mlstm_step(q[:, 0], k[:, 0], v[:, 0], ig[:, 0],
+                              fg[:, 0], state)
+    for name, new in (("C", C), ("n", n), ("m", m), ("conv", new_conv)):
+        cache[name].copy_(new)
+    return _mlstm_out(p, x, h[:, None], z), cache
+
+
+def mlstm_block_states(cfg: ModelConfig, p, x, *, chunk: int = 64,
+                       kernel_impl: str = "auto"):
+    """Full-sequence mLSTM block that also returns the decode cache
+    {"C" (B,H,P,P), "n" (B,H,P), "m" (B,H) fp32, "conv" (B,W-1,di) in x's
+    dtype}."""
+    q, k, v, ig, fg, z, conv = _mlstm_in(cfg, p, x)
+    h, (C, n, m) = ops.mlstm(q, k, v, ig, fg, chunk=chunk, return_state=True,
+                             impl=kernel_impl)
+    return _mlstm_out(p, x, h, z), {"C": C, "n": n, "m": m, "conv": conv}
+
+
+def _slstm_gates(cfg: ModelConfig, p, x, conv_cache=None):
+    """Pre-norm, causal conv and the input gate preactivations
+    (B,S,4,H,P): the conv feeds i and f, the normed input z and o (per
+    the paper's Fig. 10). Returns (gates, the conv's new cache: its last
+    W-1 inputs)."""
+    dt = x.dtype
+    xin = apply_norm(cfg, p["norm"], x)
+    xc, new_conv = _causal_conv(xin, p["conv"], cache=conv_cache)
+    xc = F.silu(xc)
+    wg = p["w_gates"].to(dt)
+    g_if = torch.einsum("bsd,dghp->bsghp", xc, wg[:, :2])
+    g_zo = torch.einsum("bsd,dghp->bsghp", xin, wg[:, 2:])
+    gates = torch.cat([g_if, g_zo], dim=2) + p["b_gates"].to(dt)
+    return gates, new_conv
+
+
+def _slstm_out(cfg: ModelConfig, p, x, hs):
+    """Group norm and residual, then the gated FFN on the same pre-norm
+    parameters."""
+    B, S, D = x.shape
+    dt = x.dtype
+    x = x + _group_norm(p, hs.reshape(B, S, D).to(dt), dt)
+    xin2 = apply_norm(cfg, p["norm"], x)
+    f = p["ffn"]
+    hh = F.silu(xin2 @ f["w_gate"].to(dt)) * (xin2 @ f["w_up"].to(dt))
+    return x + hh @ f["w_down"].to(dt)
+
+
+def apply_slstm_block(cfg: ModelConfig, p, x, *, cache=None):
+    """Pre-LN sLSTM block + gated FFN. x: (B,S,D) -> (out, cache or None).
+    With a cache {"h","c","n","m","conv"}, the scan starts from its state,
+    and the new state and conv rows are written into it in place (cast to
+    each leaf's dtype); the cache is returned."""
+    conv_cache = None if cache is None else cache["conv"]
+    gates, new_conv = _slstm_gates(cfg, p, x, conv_cache)
+    state = None if cache is None else tuple(
+        cache[k] for k in ("h", "c", "n", "m"))
+    hs, new_state = slstm_scan(gates, p["r_gates"], cfg.num_heads,
+                               init_state=state)
+    out = _slstm_out(cfg, p, x, hs)
+    if cache is None:
+        return out, None
+    for name, new in zip(("h", "c", "n", "m", "conv"),
+                         new_state + (new_conv,)):
+        cache[name].copy_(new)
+    return out, cache
+
+
+def slstm_block_states(cfg: ModelConfig, p, x):
+    """Full-sequence sLSTM block that also returns the decode cache
+    {"h","c","n","m" (B,H,P) fp32, "conv" (B,W-1,D) in x's dtype}."""
+    gates, conv = _slstm_gates(cfg, p, x)
+    hs, (h, c, n, m) = slstm_scan(gates, p["r_gates"], cfg.num_heads)
+    return _slstm_out(cfg, p, x, hs), {"h": h, "c": c, "n": n, "m": m,
+                                       "conv": conv}
+
+
+# ---------------------------------------------------------------------------
+# Decode caches
+# ---------------------------------------------------------------------------
+def mlstm_init_cache(cfg: ModelConfig, batch: int, dtype, device=None):
+    """A fresh single-layer mLSTM cache: C, n zero and m = -inf in fp32,
+    the conv rows zero in `dtype`."""
+    di, H, P = mlstm_heads(cfg)
+    return {"C": torch.zeros((batch, H, P, P), dtype=F32, device=device),
+            "n": torch.zeros((batch, H, P), dtype=F32, device=device),
+            "m": torch.full((batch, H), -math.inf, dtype=F32, device=device),
+            "conv": torch.zeros((batch, cfg.ssm.conv_width - 1, di),
+                                dtype=dtype, device=device)}
+
+
+def slstm_init_cache(cfg: ModelConfig, batch: int, dtype, device=None):
+    """A fresh single-layer sLSTM cache: h, c, n zero and m = -inf in
+    fp32, the conv rows zero in `dtype`."""
+    d, H = cfg.d_model, cfg.num_heads
+    P = d // H
+    z = {k: torch.zeros((batch, H, P), dtype=F32, device=device)
+         for k in ("h", "c", "n")}
+    z["m"] = torch.full((batch, H, P), -math.inf, dtype=F32, device=device)
+    z["conv"] = torch.zeros((batch, cfg.ssm.conv_width - 1, d), dtype=dtype,
+                            device=device)
+    return z

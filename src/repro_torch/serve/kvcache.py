@@ -9,11 +9,13 @@ pending-token entry; finished outputs accumulate until `drain()` hands
 them to the caller.
 
 Unlike the JAX version, decode writes its cache updates (the new K/V row
-at the position or ring slot, the Mamba conv rows and state) into the pool
-in place: a tick whose slots form a contiguous range decodes on a view of
-the pool, and only a scattered set of slots is gathered and written back.
-Every leaf is stored in the pool's dtype, the Mamba state included, as the
-JAX pool casts on write.
+at the position or ring slot, the Mamba conv rows and state, the xLSTM
+states and conv rows) into the pool in place: a tick whose slots form a
+contiguous range decodes on a view of the pool, and only a scattered set
+of slots is gathered and written back. Each leaf keeps the dtype
+`Model.init_cache` gave it, as the JAX pool casts on write: the pool's
+dtype (bf16 by default) for K/V, the Mamba state and the xLSTM C, n, h, c
+and conv rows, fp32 for the xLSTM stabilisers m.
 """
 from __future__ import annotations
 
@@ -86,8 +88,9 @@ class CacheManager:
     def write_prefill(self, slot: int, slot_cache, pos: int):
         """Copy a single-request prefill cache (batch dim 1) into the pool
         at `slot`, leaf by leaf (K/V, ring, meta rows, Mamba conv and
-        state, in the cache spec's key order, which the prefill cache
-        keeps), each cast to the pool's dtype. (The JAX module's batched
+        state, xLSTM states and conv rows, in the cache spec's key order,
+        which the prefill cache keeps), each cast to its pool leaf's
+        dtype. (The JAX module's batched
         `write_prefill_many` arrives with the fleet serving plane.)"""
         for dst, src in zip(tree_leaves(self.cache), tree_leaves(slot_cache),
                             strict=True):

@@ -201,9 +201,8 @@ def test_init_cache_defaults_to_bf16(models):
 
 
 @pytest.mark.parametrize("change", [
-    dict(family="moe"), dict(act="gelu"), dict(qk_norm=True),
-    dict(family="ssm"), dict(norm="layernorm")],
-    ids=["family", "act", "qk_norm", "ssm_family", "layernorm"])
+    dict(family="moe"), dict(act="gelu"), dict(qk_norm=True)],
+    ids=["family", "act", "qk_norm"])
 def test_unported_configs_raise(change):
     """A config that uses anything the port does not have yet is refused
     with a pointer to the ROADMAP, never served wrongly."""
@@ -214,13 +213,14 @@ def test_unported_configs_raise(change):
 
 @pytest.mark.parametrize("change", [
     dict(sliding_window=8, global_attn_layers=(0,)), dict(meta_tokens=2),
-    dict(norm="rmsnorm"), dict(tie_embeddings=False)],
+    dict(norm="rmsnorm"), dict(tie_embeddings=False),
+    pytest.param(dict(norm="layernorm"), id="layernorm")],
     ids=lambda c: next(iter(c)))
 def test_ported_config_changes_match_jax(change):
-    """olmo smoke with one feature that hymba brought to the port: the
-    forward logits equal the JAX package's on the same weights (fp32). A
-    window of 8 over 12 tokens pads and spans two blocks; meta tokens are
-    prepended and stripped."""
+    """olmo smoke with one feature that hymba or xlstm brought to the
+    port: the forward logits equal the JAX package's on the same weights
+    (fp32). A window of 8 over 12 tokens pads and spans two blocks; meta
+    tokens are prepended and stripped; LayerNorm carries an affine."""
     jcfg = dataclasses.replace(jax_smoke_config("olmo-1b"),
                                vocab_size=VOCAB, **change)
     tcfg = dataclasses.replace(smoke_config("olmo-1b"), vocab_size=VOCAB,
