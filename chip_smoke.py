@@ -62,6 +62,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -88,7 +89,9 @@ from repro_torch.data.scenarios import build_scenario  # noqa: E402
 from repro_torch.data.streams import DomainBank, Region  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import SOURCE as FA_SOURCE  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    TILE as FA_TILE, _flash as fa_launch_plan, flash_attention,
+    kernel_attributes as fa_attributes, plan as fa_plan)
 from repro_torch.kernels.fleet_drift import SOURCE as FD_SOURCE  # noqa: E402
 from repro_torch.kernels.fleet_drift import fleet_drift  # noqa: E402
 from repro_torch.kernels.mlstm_scan import SOURCE as ML_SOURCE  # noqa: E402
@@ -98,7 +101,8 @@ from repro_torch.kernels.pairwise_js import pairwise_js  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
                                      fleet_drift_ref, mlstm_chunked,
                                      mlstm_recurrent, pairwise_js_ref,
-                                     ssd_chunked, ssd_recurrent)
+                                     split_attention_ref, ssd_chunked,
+                                     ssd_recurrent)
 from repro_torch.kernels.ssd_scan import SOURCE as SSD_SOURCE  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -153,6 +157,11 @@ KERNELS = [("flash_attention", FA_SOURCE,
            ("pairwise_js", PJ_SOURCE, "src/repro/kernels/pairwise_js.py:54"),
            ("ssd_scan", SSD_SOURCE, "src/repro/kernels/ssd_scan.py:80"),
            ("mlstm_scan", ML_SOURCE, "src/repro/kernels/mlstm_scan.py:106")]
+# flash_attention's CUDA kernels per path, as the profiler names them
+FA_KERNELS = {"cuda_core": ("attn_fwd_kernel",),
+              "prefill": ("attn_prefill_kernel",),
+              "split_decode": ("attn_decode_split_kernel",
+                               "attn_decode_combine_kernel")}
 # kernels that no single PyTorch call computes: their library time is null
 NO_LIBRARY_CALL = ("fleet_drift", "pairwise_js", "ssd_scan", "mlstm_scan")
 
@@ -228,11 +237,36 @@ def _check(name, got, want, tol, rtol=None):
     return err
 
 
+def _attn_case(name, q, k, v, path, causal=True, window=0, plain=None):
+    """One flash_attention case on the path `plan` must pick, held to the
+    plain version (`attention_ref`, or `plain` where rows see no key:
+    the kernel's 0 is `split_attention_ref`'s); returns the error."""
+    pl = fa_plan(q, k, v)
+    assert pl.path == path, (name, pl.path, path)
+    if path == "prefill":
+        path += f", {pl.groups} kv group{'s' * (pl.groups > 1)}"
+    want = (plain or attention_ref)(q, k, v, causal=causal, window=window)
+    return _check(f"{name} [{path}]",
+                  flash_attention(q, k, v, causal=causal, window=window),
+                  want, TOL[q.dtype])
+
+
 def check_attention():
+    """flash_attention against its plain version: the tests/test_kernels.py
+    sweep and hd 18 (scalar loads) in both dtypes, then the tensor-core
+    paths in bf16 (prefill at hd 32, 40, 64, 128, S not a multiple of 64,
+    appended queries, window 32, non-causal, GQA 25/5, rows with no
+    visible key, with two kv groups per block and, on grids of 2 x 132
+    blocks or more, one; split-KV decode over strided cache views with
+    ragged last splits, splits of several tiles, and S = 4 appended
+    queries with a window, so splits before the first visible key), then
+    the serving shapes. Returns the largest error at the serving shapes,
+    bf16."""
     gen = torch.Generator(device=DEV).manual_seed(0)
     sweep = [(1, 128, 128, 4, 4, 64), (2, 64, 64, 4, 2, 32),
              (1, 96, 96, 8, 1, 64), (1, 32, 128, 4, 2, 64)]
     for dtype in (torch.float32, torch.bfloat16):
+        path = "cuda_core" if dtype == torch.float32 else "prefill"
         for B, S, T, H, K, hd in sweep:
             for causal, window in ((True, 0), (True, 32), (False, 0)):
                 if not causal and S != T:
@@ -240,51 +274,158 @@ def check_attention():
                 q = _randn((B, S, H, hd), dtype, gen)
                 k = _randn((B, T, K, hd), dtype, gen)
                 v = _randn((B, T, K, hd), dtype, gen)
-                _check(f"sweep {str(dtype)[6:]} B{B} S{S} T{T} H{H} K{K} "
-                       f"hd{hd} causal={causal} window={window}",
-                       flash_attention(q, k, v, causal=causal,
-                                       window=window),
-                       attention_ref(q, k, v, causal=causal, window=window),
-                       TOL[dtype])
+                _attn_case(f"sweep {str(dtype)[6:]} B{B} S{S} T{T} H{H} K{K} "
+                           f"hd{hd} causal={causal} window={window}",
+                           q, k, v, path, causal, window)
     # head_dim 18 is not a multiple of 16 bytes: the scalar load path
     for dtype in (torch.float32, torch.bfloat16):
         q = _randn((2, 40, 4, 18), dtype, gen)
         k = _randn((2, 72, 2, 18), dtype, gen)
         v = _randn((2, 72, 2, 18), dtype, gen)
-        _check(f"scalar loads {str(dtype)[6:]} B2 S40 T72 H4 K2 hd18 causal",
-               flash_attention(q, k, v), attention_ref(q, k, v), TOL[dtype])
-    serving = []
+        _attn_case(f"scalar loads {str(dtype)[6:]} B2 S40 T72 H4 K2 hd18 "
+                   f"causal", q, k, v, "cuda_core")
     bf16 = torch.bfloat16
+    for B, S, T, H, K, hd, causal, window, plain, what in [
+            (2, 200, 200, 8, 2, 32, True, 0, None, "S % 64 != 0"),
+            (2, 200, 200, 8, 2, 40, True, 0, None, "padded hd"),
+            (2, 200, 200, 8, 2, 64, True, 0, None, "S % 64 != 0"),
+            (2, 200, 200, 8, 2, 128, True, 0, None, "S % 64 != 0"),
+            (2, 100, 300, 8, 4, 64, True, 0, None, "appended queries"),
+            (1, 90, 333, 4, 2, 128, True, 32, None, "appended, window 32"),
+            (1, 256, 256, 4, 2, 128, True, 32, None, "window 32"),
+            (2, 150, 150, 4, 1, 64, False, 0, None, "non-causal MQA"),
+            (1, 70, 200, 4, 4, 64, False, 0, None, "non-causal S < T"),
+            (1, 300, 300, 25, 5, 64, True, 0, None, "GQA 25/5"),
+            (1, 80, 40, 4, 2, 64, True, 0, split_attention_ref,
+             "S > T: rows without keys are 0"),
+            (2, 600, 600, 16, 4, 128, True, 100, None, "window 100"),
+            (1, 1000, 1000, 20, 5, 64, False, 0, None, "non-causal"),
+            (1, 1100, 600, 16, 4, 64, True, 0, split_attention_ref,
+             "S > T: rows without keys are 0")]:
+        q = _randn((B, S, H, hd), bf16, gen)
+        k = _randn((B, T, K, hd), bf16, gen)
+        v = _randn((B, T, K, hd), bf16, gen)
+        _attn_case(f"tensor cores B{B} S{S} T{T} H{H} K{K} hd{hd} "
+                   f"causal={causal} window={window} ({what})", q, k, v,
+                   "prefill", causal, window, plain)
+    # split-KV decode over strided prefixes of a cache
+    for B, S, cap, T, H, K, hd, window, plain, what in [
+            (3, 1, 512, 300, 8, 8, 128, 0, None, "ragged last split"),
+            (4, 1, 1024, 700, 16, 16, 128, 0, None,
+             "multi-tile splits, ragged"),
+            (2, 1, 1000, 777, 25, 5, 64, 0, None, "GQA 25/5, ragged"),
+            (2, 1, 1000, 777, 25, 5, 64, 32, None, "window 32"),
+            (3, 2, 256, 129, 4, 1, 32, 0, None, "MQA S 2, hd 32"),
+            (2, 4, 800, 600, 8, 2, 64, 100, None,
+             "S 4 appended, window 100: splits before the first key"),
+            (2, 6, 64, 3, 4, 2, 64, 0, split_attention_ref,
+             "S > T: rows without keys are 0")]:
+        q = _randn((B, S, H, hd), bf16, gen)
+        ck, cv = (_randn((B, cap, K, hd), bf16, gen) for _ in range(2))
+        kp, vp = ck[:, :T], cv[:, :T]
+        assert not kp.is_contiguous()
+        pl = fa_plan(q, kp, vp)
+        _attn_case(f"split decode B{B} S{S} T{T}/{cap} H{H} K{K} hd{hd} "
+                   f"window={window} ({what}; {pl.splits} splits of "
+                   f"{pl.split})", q, kp, vp, "split_decode", True, window,
+                   plain)
+    serving = []
     q, k, v = (_randn((1, PROMPT, 16, 128), bf16, gen) for _ in range(3))
-    serving.append(_check(
-        "serving prefill bf16 (1,512,16,16,128) causal",
-        flash_attention(q, k, v), attention_ref(q, k, v), TOL[bf16]))
+    serving.append(_attn_case(
+        "serving prefill bf16 (1,512,16,16,128) causal", q, k, v,
+        "prefill"))
     ck, cv = (_randn((SLOTS, CAP, 16, 128), bf16, gen) for _ in range(2))
     for qdt in (bf16, torch.float32):
         q = _randn((SLOTS, 1, 16, 128), qdt, gen)
         kp, vp = ck[:, :DECODE_T], cv[:, :DECODE_T]   # strided views
         assert not kp.is_contiguous()
-        err = _check(f"serving decode q {str(qdt)[6:]} over bf16 cache "
-                     f"prefix (4,{DECODE_T}/{CAP},16,128)",
-                     flash_attention(q, kp, vp), attention_ref(q, kp, vp),
-                     TOL[qdt])
+        err = _attn_case(f"serving decode q {str(qdt)[6:]} over bf16 cache "
+                         f"prefix (4,{DECODE_T}/{CAP},16,128)", q, kp, vp,
+                         "split_decode" if qdt == bf16 else "cuda_core")
         if qdt == bf16:
             serving.append(err)
     # hymba's global layers: GQA group 5 at head_dim 64, S + meta = 1152
     q = _randn((1, HY_S, 25, 64), bf16, gen)
     k, v = (_randn((1, HY_S, 5, 64), bf16, gen) for _ in range(2))
-    serving.append(_check(
+    serving.append(_attn_case(
         f"hymba prefill bf16 q (1,{HY_S},25,64) k,v (1,{HY_S},5,64) causal",
-        flash_attention(q, k, v), attention_ref(q, k, v), TOL[bf16]))
+        q, k, v, "prefill"))
     ck, cv = (_randn((SLOTS, HY_CAP, 5, 64), bf16, gen) for _ in range(2))
     q = _randn((SLOTS, 1, 25, 64), bf16, gen)
     kp, vp = ck[:, :HY_DECODE_T], cv[:, :HY_DECODE_T]
     assert not kp.is_contiguous()
-    serving.append(_check(
+    serving.append(_attn_case(
         f"hymba decode q (4,1,25,64) over bf16 cache prefix "
-        f"(4,{HY_DECODE_T}/{HY_CAP},5,64)",
-        flash_attention(q, kp, vp), attention_ref(q, kp, vp), TOL[bf16]))
+        f"(4,{HY_DECODE_T}/{HY_CAP},5,64)", q, kp, vp, "split_decode"))
     return max(serving)
+
+
+def tensor_core_report():
+    """The built flash_attention library's SASS: tensor-core (HMMA) and
+    fp32 FMA (FFMA) instruction counts of each kernel, which must show
+    HMMA in the prefill and split-decode kernels and none in the CUDA-core
+    kernel; then each kernel's registers and shared memory as the card
+    reports them."""
+    lib = _build.library_path(FA_SOURCE)
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    counts = {}
+    if os.path.exists(tool):
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        name = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = m.group(1)
+                counts[name] = {"HMMA": 0, "FFMA": 0}
+            elif name:
+                for op in ("HMMA", "FFMA"):
+                    if re.search(rf"\b{op}\b", line):
+                        counts[name][op] += 1
+        source = "cuobjdump -sass"
+    else:       # no cuobjdump: the PTX's mma.sync / fma.rn.f32 instead
+        ptx = lib.with_suffix(".ptx")
+        subprocess.run([_build.nvcc_path(), "-gencode",
+                        "arch=compute_90a,code=compute_90a", "-std=c++17",
+                        "-O3", "-ptx", "-o", str(ptx),
+                        str(_build.CSRC / FA_SOURCE)], check=True,
+                       timeout=300)
+        name = None
+        for line in ptx.read_text().splitlines():
+            m = re.match(r"\.visible \.entry (\S+)\(|\.entry (\S+)\(",
+                         line.strip())
+            if m:
+                name = m.group(1) or m.group(2)
+                counts[name] = {"HMMA": 0, "FFMA": 0}
+            elif name:
+                counts[name]["HMMA"] += "mma.sync" in line
+                counts[name]["FFMA"] += "fma.rn.f32" in line
+        source = "PTX (mma.sync as HMMA, fma.rn.f32 as FFMA)"
+    hmma = {}
+    for name, c in sorted(counts.items()):
+        kind = next((k for k in ("attn_prefill_kernel",
+                                 "attn_decode_split_kernel",
+                                 "attn_decode_combine_kernel",
+                                 "attn_fwd_kernel") if k in name), None)
+        if kind is None:
+            continue
+        hmma[kind] = hmma.get(kind, 0) + c["HMMA"]
+        args = name.split(kind, 1)[1].split("EEv")[0]   # template arguments
+        print(f"[sass] {source}: {kind}{args}: HMMA {c['HMMA']}, FFMA "
+              f"{c['FFMA']}")
+    assert hmma.get("attn_prefill_kernel", 0) > 0, hmma
+    assert hmma.get("attn_decode_split_kernel", 0) > 0, hmma
+    assert hmma.get("attn_fwd_kernel", 1) == 0, hmma
+    for kernel in ("prefill", "prefill_2_groups", "split_decode", "combine",
+                   "cuda_core"):
+        for hdp in ((32, 64, 128) if kernel != "combine" else (128,)):
+            a = fa_attributes(kernel, hdp)
+            print(f"[sass] flash_attention {kernel} hd<={hdp}: "
+                  f"{a['registers']} registers, shared memory "
+                  f"{a['static_smem']} static + {a['dynamic_smem']} dynamic "
+                  f"bytes, {a['local_bytes']} local bytes per thread")
+    return hmma
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, gen):
@@ -513,15 +654,20 @@ SERVING_KERNELS = (flash_attention, ssd_scan, mlstm_scan)
 def reset_launches():
     for k in SERVING_KERNELS:
         k.launches = 0
+    flash_attention.combine_launches = 0
 
 
 def launch_counts():
-    return {k.__name__: k.launches for k in SERVING_KERNELS}
+    counts = {k.__name__: k.launches for k in SERVING_KERNELS}
+    counts["flash_attention_combine"] = flash_attention.combine_launches
+    return counts
 
 
 def expected_launches(cfg, prefills, decode_calls):
     """flash_attention: every global-attention layer once per prefill and
-    once per decode call (windowed layers attend in plain PyTorch);
+    once per decode call (windowed layers attend in plain PyTorch), and
+    its split-KV combine once per decode call (bf16 decode over S x G <= 16
+    query rows per kv head: olmo's 1, hymba's 5);
     ssd_scan: every hybrid layer's Mamba heads once per prefill;
     mlstm_scan: every mLSTM block once per prefill (decode steps both
     states in plain PyTorch)."""
@@ -531,6 +677,7 @@ def expected_launches(cfg, prefills, decode_calls):
     ssd_layers = cfg.num_layers if cfg.family == "hybrid" else 0
     mlstm_layers = sum(s.count for s in plan if s.kind == "mlstm")
     return {"flash_attention": global_layers * (prefills + decode_calls),
+            "flash_attention_combine": global_layers * decode_calls,
             "ssd_scan": ssd_layers * prefills,
             "mlstm_scan": mlstm_layers * prefills}
 
@@ -1036,30 +1183,49 @@ def _time_ms(fn, sets, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, sets, kernel, iters=20):
-    """Mean device time (ms) of one launch of the CUDA kernel named
-    `kernel`, under torch.profiler (CUDA activity only) over `iters` calls
-    of `fn`: the kernel alone, without the host's time to launch it,
-    which CUDA events around a short kernel measure instead. The profiler
-    on the card may drop some launches' records; the mean is over those
-    it kept, and the count is printed when it kept fewer than `iters`."""
+def _device_ms(fn, sets, kernels=None, iters=20):
+    """Mean device time (ms) of one call of `fn` under torch.profiler (CUDA
+    activity only) over `iters` calls: for each CUDA kernel whose name
+    holds one of `kernels` (a name or a tuple of names; every kernel the
+    calls launched when None), the mean time of its launches, summed over
+    the kernels, each of which a call launches once (a session that kept
+    none of them is run again, up to three times). That is the device
+    work alone, without the host's time to launch it, which CUDA events
+    around a short call measure instead. The profiler on the card may drop
+    some launches' records; each mean is over those it kept, and the count
+    is printed when it kept fewer than `iters`."""
     from torch.profiler import ProfilerActivity, profile
+    if isinstance(kernels, str):
+        kernels = (kernels,)
     for i in range(3):
         fn(*sets[i % len(sets)])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*sets[i % len(sets)])
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in evs)
-    if not 0 < count <= iters:
-        raise AssertionError(f"profiler saw {count} launches of {kernel} "
-                             f"in {iters} calls")
-    if count < iters:
-        print(f"[time] the profiler kept {count} of {iters} launches of "
-              f"{kernel}")
-    return sum(e.device_time_total for e in evs) / count / 1e3
+    for _ in range(3):      # a session on the card may keep no record
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*sets[i % len(sets)])
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_time_total > 0]
+        if all(any(n in e.key for e in evs) for n in kernels or ("",)):
+            break
+        print(f"[time] a profiler session kept no launch of "
+              f"{kernels or 'any kernel'}; profiling again")
+    names = kernels or tuple(e.key for e in evs)
+    if kernels is None:
+        print(f"[time]   library kernels: "
+              f"{[(e.key[:60], e.count) for e in evs]}")
+    total = 0.0
+    for name in names:
+        mine = [e for e in evs if name in e.key]
+        count = sum(e.count for e in mine)
+        if not 0 < count <= iters:
+            raise AssertionError(f"profiler saw {count} launches of {name} "
+                                 f"in {iters} calls")
+        if count < iters:
+            print(f"[time] the profiler kept {count} of {iters} launches of "
+                  f"{name[:60]}")
+        total += sum(e.device_time_total for e in mine) / count / 1e3
+    return total
 
 
 def _bound(nbytes, flops, dtype, pk):
@@ -1068,94 +1234,121 @@ def _bound(nbytes, flops, dtype, pk):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _attention_row(shape, sets, sdpa_sets, prefill, nbytes, flops, dtype,
+                   pk):
+    """Causal attention as serving calls it, by the kernel, the plain
+    version and SDPA (the yardstick the port never calls) on the same
+    inputs: per call (CUDA events) and on the device (the kernels of the
+    path `plan` picks, every kernel SDPA launches). SDPA's causal mask is
+    aligned top-left, so a decode row (S = 1, every key visible) calls it
+    without one."""
+    path = fa_plan(*sets[0]).path
+
+    def kern(q, k, v):
+        return flash_attention(q, k, v)
+
+    def lib(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=prefill)
+
+    return dict(
+        shape=f"{shape} [{path}]", path=path,
+        ms=_time_ms(kern, sets),
+        device_ms=_device_ms(kern, sets, FA_KERNELS[path]),
+        plain_ms=_time_ms(attention_ref, sets),
+        library_ms=_time_ms(lib, sdpa_sets),
+        library_device_ms=_device_ms(lib, sdpa_sets),
+        bound=_bound(nbytes, flops, dtype, pk))
+
+
 def time_attention(pk):
-    bf16 = torch.bfloat16
+    """flash_attention at the four bf16 serving shapes (olmo and hymba,
+    prefill and decode) and the two fp32 ones (olmo prefill in fp32, and
+    fp32 q over olmo's bf16 cache), rotating 6-8 input sets so that L2
+    does not hold them. SDPA gets q, k, v in its (B, H, S, hd) layout,
+    hymba's k, v repeated to 25 heads and, for fp32 q, the bf16 cache
+    widened to fp32, all beforehand. Bytes: q, k, v read once, o written
+    once; operations: QK^T and PV over the visible (query, key) pairs."""
+    bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=DEV).manual_seed(2)
-    el = 2                                        # bytes per bf16 element
     rows = {}
 
-    # prefill: q, k, v (1, 512, 16, 128), causal
-    B, S, H, hd = 1, PROMPT, 16, 128
-    sets = [tuple(_randn((B, S, H, hd), bf16, gen) for _ in range(3))
-            for _ in range(8)]
-    sdpa_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
-                 for s in sets]
-    pairs = S * (S + 1) // 2                      # visible (query, key)
-    nbytes = 4 * B * S * H * hd * el              # q, k, v read; o written
-    flops = 4 * B * H * pairs * hd                # QK^T and PV
-    rows["prefill"] = dict(
-        shape="q,k,v (1,512,16,128) bf16 causal",
-        ms=_time_ms(lambda q, k, v: flash_attention(q, k, v), sets),
-        device_ms=_device_ms(lambda q, k, v: flash_attention(q, k, v), sets,
-                             "attn_fwd_kernel"),
-        plain_ms=_time_ms(lambda q, k, v: attention_ref(q, k, v), sets),
-        library_ms=_time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), sdpa_sets),
-        bound=_bound(nbytes, flops, bf16, pk))
+    def sdpa(sets_, G=1, dtype=None):
+        return [tuple(t.repeat_interleave(G if i else 1, 2).transpose(1, 2)
+                      .to(dtype or t.dtype).contiguous()
+                      for i, t in enumerate(s)) for s in sets_]
 
-    # decode: q (4, 1, 16, 128) over a (4, DECODE_T) prefix of the cache
-    T = DECODE_T
-    caches = [(_randn((SLOTS, 1, H, hd), bf16, gen),
-               _randn((SLOTS, CAP, H, hd), bf16, gen),
-               _randn((SLOTS, CAP, H, hd), bf16, gen)) for _ in range(6)]
-    sets = [(q, k[:, :T], v[:, :T]) for q, k, v in caches]
-    sdpa_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
-                 for s in sets]
-    nbytes = (2 * SLOTS * H * hd + 2 * SLOTS * T * H * hd) * el
-    flops = 4 * SLOTS * H * T * hd
-    rows["decode"] = dict(
-        shape=f"q (4,1,16,128) over k,v prefix (4,{T}/{CAP},16,128) bf16",
-        ms=_time_ms(lambda q, k, v: flash_attention(q, k, v), sets),
-        device_ms=_device_ms(lambda q, k, v: flash_attention(q, k, v), sets,
-                             "attn_fwd_kernel"),
-        plain_ms=_time_ms(lambda q, k, v: attention_ref(q, k, v), sets),
-        library_ms=_time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v), sdpa_sets),
-        bound=_bound(nbytes, flops, bf16, pk))
+    def prefill(name, S, H, K, hd, dtype):
+        sets = [(_randn((1, S, H, hd), dtype, gen),
+                 _randn((1, S, K, hd), dtype, gen),
+                 _randn((1, S, K, hd), dtype, gen)) for _ in range(8)]
+        el = sets[0][0].element_size()
+        pairs = S * (S + 1) // 2                  # visible (query, key)
+        rows[name] = _attention_row(
+            f"q (1,{S},{H},{hd}), k,v (1,{S},{K},{hd}) {str(dtype)[6:]} "
+            f"causal", sets, sdpa(sets, H // K), True,
+            2 * S * (H + K) * hd * el, 4 * H * pairs * hd, dtype, pk)
 
-    # hymba's global layers: H 25 over K 5 at head_dim 64. SDPA, the
-    # yardstick, gets k and v repeated to 25 heads beforehand.
-    H, K, hd = 25, 5, 64
+    def decode(name, T, cap, H, K, hd, qdt):
+        caches = [(_randn((SLOTS, 1, H, hd), qdt, gen),
+                   _randn((SLOTS, cap, K, hd), bf16, gen),
+                   _randn((SLOTS, cap, K, hd), bf16, gen)) for _ in range(6)]
+        sets = [(q, k[:, :T], v[:, :T]) for q, k, v in caches]
+        el = torch.finfo(qdt).bits // 8
+        rows[name] = _attention_row(
+            f"q ({SLOTS},1,{H},{hd}) {str(qdt)[6:]} over bf16 k,v prefix "
+            f"({SLOTS},{T}/{cap},{K},{hd})", sets, sdpa(sets, H // K, qdt),
+            False, 2 * SLOTS * H * hd * el + 2 * SLOTS * T * K * hd * 2,
+            4 * SLOTS * H * T * hd, qdt, pk)
 
-    def sdpa(sets_, **kw):
-        return [(q.transpose(1, 2).contiguous(),
-                 k.repeat_interleave(H // K, 2).transpose(1, 2).contiguous(),
-                 v.repeat_interleave(H // K, 2).transpose(1, 2).contiguous())
-                for q, k, v in sets_]
-
-    S = HY_S
-    sets = [(_randn((1, S, H, hd), bf16, gen), _randn((1, S, K, hd), bf16, gen),
-             _randn((1, S, K, hd), bf16, gen)) for _ in range(8)]
-    pairs = S * (S + 1) // 2
-    rows["hymba_prefill"] = dict(
-        shape=f"q (1,{S},25,64), k,v (1,{S},5,64) bf16 causal",
-        ms=_time_ms(lambda q, k, v: flash_attention(q, k, v), sets),
-        device_ms=_device_ms(lambda q, k, v: flash_attention(q, k, v), sets,
-                             "attn_fwd_kernel"),
-        plain_ms=_time_ms(lambda q, k, v: attention_ref(q, k, v), sets),
-        library_ms=_time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), sdpa(sets)),
-        bound=_bound(2 * S * (H + K) * hd * el, 4 * H * pairs * hd, bf16,
-                     pk))
-    T = HY_DECODE_T
-    caches = [(_randn((SLOTS, 1, H, hd), bf16, gen),
-               _randn((SLOTS, HY_CAP, K, hd), bf16, gen),
-               _randn((SLOTS, HY_CAP, K, hd), bf16, gen)) for _ in range(6)]
-    sets = [(q, k[:, :T], v[:, :T]) for q, k, v in caches]
-    rows["hymba_decode"] = dict(
-        shape=f"q (4,1,25,64) over k,v prefix (4,{T}/{HY_CAP},5,64) bf16",
-        ms=_time_ms(lambda q, k, v: flash_attention(q, k, v), sets),
-        device_ms=_device_ms(lambda q, k, v: flash_attention(q, k, v), sets,
-                             "attn_fwd_kernel"),
-        plain_ms=_time_ms(lambda q, k, v: attention_ref(q, k, v), sets),
-        library_ms=_time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v), sdpa(sets)),
-        bound=_bound((2 * SLOTS * H * hd + 2 * SLOTS * T * K * hd) * el,
-                     4 * SLOTS * H * T * hd, bf16, pk))
-
+    prefill("prefill", PROMPT, 16, 16, 128, bf16)
+    decode("decode", DECODE_T, CAP, 16, 16, 128, bf16)
+    prefill("hymba_prefill", HY_S, 25, 5, 64, bf16)
+    decode("hymba_decode", HY_DECODE_T, HY_CAP, 25, 5, 64, bf16)
+    prefill("prefill_fp32", PROMPT, 16, 16, 128, f32)
+    decode("decode_fp32_q", DECODE_T, CAP, 16, 16, 128, f32)
     for name, r in rows.items():
         _print_time(f"flash_attention {name}", r)
     return rows
+
+
+def sweep_attention_plans():
+    """The device time of other plans than `plan`'s at the four bf16
+    serving shapes, each held to the plain version first: the prefill with
+    one and two kv groups per block, the decode with splits of 1, 2, 3, 4
+    and 6 tiles. It is the measurement behind `plan`'s rules."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    shapes = {"olmo prefill": (1, PROMPT, PROMPT, 16, 16, 128, None),
+              "hymba prefill": (1, HY_S, HY_S, 25, 5, 64, None),
+              "olmo decode": (SLOTS, 1, DECODE_T, 16, 16, 128, CAP),
+              "hymba decode": (SLOTS, 1, HY_DECODE_T, 25, 5, 64, HY_CAP)}
+    for name, (B, S, T, H, K, hd, cap) in shapes.items():
+        sets = []
+        for _ in range(6):
+            q = _randn((B, S, H, hd), bf16, gen)
+            k, v = (_randn((B, cap or T, K, hd), bf16, gen)
+                    for _ in range(2))
+            sets.append((q, k[:, :T], v[:, :T]))
+        chosen = fa_plan(*sets[0])
+        if chosen.path == "prefill":
+            variants = [chosen._replace(groups=g) for g in (1, 2)]
+        else:
+            variants = []
+            for tiles in (1, 2, 3, 4, 6):
+                split = tiles * FA_TILE
+                splits = math.ceil(T / split)
+                variants.append(chosen._replace(
+                    split=split, splits=splits, grid=splits * K * B))
+        want = attention_ref(*sets[0])
+        for pl in variants:
+            def call(q, k, v, pl=pl):
+                return fa_launch_plan(q, k, v, True, 0, pl)
+            tag = (f"flash_attention {name}: groups {pl.groups}, split "
+                   f"{pl.split}, splits {pl.splits}, grid {pl.grid}")
+            _check(f"sweep {tag}", call(*sets[0]), want, TOL[bf16])
+            ms = _device_ms(call, sets, FA_KERNELS[pl.path], iters=40)
+            mark = " (plan's choice)" if pl == chosen else ""
+            print(f"[sweep] {tag}: {ms:.4f} ms on the device{mark}")
 
 
 def time_ssd(pk):
@@ -1298,6 +1491,9 @@ def time_mlstm(pk):
 def _print_time(name, r):
     bms, by = r["bound"]
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    if r.get("library_device_ms") is not None:
+        lib += (f" ({r['library_device_ms']:.4f} ms on the device; kernel "
+                f"{r['device_ms'] / r['library_device_ms']:.2f}x of it)")
     print(f"[time] {name} {r['shape']}: kernel {r['ms']:.4f} ms per call "
           f"({r['device_ms']:.4f} ms on the device) | plain "
           f"{r['plain_ms']:.4f} ms | library {lib} | bound {bms:.4f} ms "
@@ -1306,9 +1502,12 @@ def _print_time(name, r):
 
 def _timing_keys(r):
     bms, by = r["bound"]
-    return {"ms": r["ms"], "device_ms": r["device_ms"],
+    keys = {"ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": r["library_ms"]}
+    if "library_device_ms" in r:
+        keys["library_device_ms"] = r["library_device_ms"]
+    return keys
 
 
 def _entry(name, source, replaces, launches, err, row, **extra):
@@ -1340,6 +1539,7 @@ def main():
     t_start = time.perf_counter()
 
     phase("build", build_all)
+    hmma = phase("tensor-core report", tensor_core_report)
     cap = index_capacity(JOINERS)
     err = {"flash_attention": phase("check flash_attention",
                                     check_attention)}
@@ -1358,8 +1558,8 @@ def main():
     phase(f"logits {HYMBA} fp32", compare_logits, HYMBA, torch.float32)
     xl = phase(f"serve {XLSTM}", serve_full_width, XLSTM)
     # 12 mLSTM blocks, each through the kernel once per prefill
-    assert xl == {"flash_attention": 0, "ssd_scan": 0,
-                  "mlstm_scan": 12 * REQUESTS}, xl
+    assert xl == {"flash_attention": 0, "flash_attention_combine": 0,
+                  "ssd_scan": 0, "mlstm_scan": 12 * REQUESTS}, xl
     launches["mlstm_scan"] = xl["mlstm_scan"]
     phase(f"logits {XLSTM}", compare_logits, XLSTM)
     phase(f"logits {XLSTM} fp32", compare_logits, XLSTM, torch.float32)
@@ -1370,6 +1570,7 @@ def main():
     launches["pairwise_js"] = storm["launches"]
     assert storm["capacity"] == cap, (storm["capacity"], cap)
     att = phase("time flash_attention", time_attention, pk)
+    phase("sweep flash_attention plans", sweep_attention_plans)
     fd = phase("time fleet_drift", time_fleet_drift, pk, windows, refs)
     pj = phase("time pairwise_js", time_pairwise_js, pk, cap)
     ssd = phase("time ssd_scan", time_ssd, pk)
@@ -1390,8 +1591,13 @@ def main():
                     launches["flash_attention"], err["flash_attention"],
                     att["prefill"], decode=att["decode"],
                     hymba_prefill=att["hymba_prefill"],
-                    hymba_decode=att["hymba_decode"]),
-             hymba_launches=hymba["flash_attention"]),
+                    hymba_decode=att["hymba_decode"],
+                    prefill_fp32=att["prefill_fp32"],
+                    decode_fp32_q=att["decode_fp32_q"]),
+             combine_launches=launches["flash_attention_combine"],
+             hymba_launches=hymba["flash_attention"],
+             hymba_combine_launches=hymba["flash_attention_combine"],
+             tensor_core_hmma=hmma),
         _entry("fleet_drift", *src["fleet_drift"], launches["fleet_drift"],
                err["fleet_drift"], fd),
         _entry("pairwise_js", *src["pairwise_js"], launches["pairwise_js"],

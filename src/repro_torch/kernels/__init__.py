@@ -2,8 +2,9 @@
 
 flash_attention — blockwise online-softmax attention forward (GQA,
     causal + sliding window, strided k/v), CUDA C++ for sm_90a in
-    `csrc/flash_attention.cu`; replaces the Pallas TPU kernel of the same
-    name.
+    `csrc/flash_attention.cu`: a bf16 tensor-core prefill, a bf16 split-KV
+    decode with its combine, and a CUDA-core kernel for fp32; replaces the
+    Pallas TPU kernel of the same name.
 fleet_drift — every stream's token histogram and its Jensen-Shannon score
     against the stream's reference in one launch (a warp per stream,
     shared-memory integer counts), CUDA C++ in `csrc/fleet_drift.cu`;

@@ -32,18 +32,79 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     vv = v.repeat_interleave(G, dim=2)
     s = torch.einsum("bshd,bthd->bhst", q.to(F32), kk.to(F32))
     s = s / math.sqrt(hd)
-    i = torch.arange(S, device=q.device)[:, None]
-    j = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    mask = _visible(S, T, causal, window, q.device)
+    s = torch.where(mask[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhst,bthd->bshd", p, vv.to(F32))
+    return o.to(q.dtype)
+
+
+def _visible(S: int, T: int, causal: bool, window: int, device):
+    """(S, T) key visibility of `attention_ref`."""
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
     if causal:
         qpos = i + (T - S)
         mask &= j <= qpos
         if window > 0:
             mask &= (qpos - j) < window
-    s = torch.where(mask[None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhst,bthd->bshd", p, vv.to(F32))
-    return o.to(q.dtype)
+    return mask
+
+
+def split_attention_partials(q, k, v, *, causal: bool = True,
+                             window: int = 0, split: int = 64):
+    """The split-KV decode's first pass: for each split of `split` keys
+    ([i split, (i + 1) split) of [0, T)), each query row's running max m
+    of the scores in log2 units (scale * log2 e folded in; -inf where the
+    split holds no visible key), l = sum 2^(x - m) over the split's
+    visible keys, and o = sum 2^(x - m) v with the probabilities rounded
+    to v's dtype first (as the kernel's bf16 PV product and the JAX
+    model's `_gqa_out` round them). Returns part_o (splits, B, S, H, hd)
+    and part_ml (splits, B, S, H, 2) = (m, l), fp32."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    kk = k.repeat_interleave(G, dim=2).to(F32)
+    vv = v.repeat_interleave(G, dim=2)
+    x = torch.einsum("bshd,bthd->bsht", q.to(F32), kk)
+    x = x * (math.log2(math.e) / math.sqrt(hd))
+    x = torch.where(_visible(S, T, causal, window, q.device)[None, :, None],
+                    x, -math.inf)
+    part_o, part_ml = [], []
+    for t0 in range(0, T, split):
+        xs = x[..., t0:t0 + split]
+        m = xs.amax(dim=-1)
+        p = torch.exp2(xs - torch.where(m == -math.inf, 0.0, m)[..., None])
+        part_ml.append(torch.stack([m, p.sum(dim=-1)], dim=-1))
+        part_o.append(torch.einsum("bsht,bthd->bshd",
+                                   p.to(vv.dtype).to(F32),
+                                   vv[:, t0:t0 + split].to(F32)))
+    return torch.stack(part_o), torch.stack(part_ml)
+
+
+def combine_splits(part_o, part_ml, dtype):
+    """The split-KV decode's combine: o = sum_i o_i 2^(m_i - M) / sum_i
+    l_i 2^(m_i - M) with M = max_i m_i; a row whose splits saw no visible
+    key (M = -inf) is 0. Returns (B, S, H, hd) in `dtype`."""
+    m, l = part_ml[..., 0], part_ml[..., 1]
+    M = m.amax(dim=0)
+    w = torch.where(M == -math.inf, 0.0, torch.exp2(m - M))
+    L = (l * w).sum(dim=0)
+    o = (part_o * w[..., None]).sum(dim=0)
+    o = torch.where(L[..., None] > 0, o / L[..., None], 0.0)
+    return o.to(dtype)
+
+
+def split_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        split: int = 64):
+    """Attention by the split-KV decode's algorithm, in plain PyTorch:
+    `split_attention_partials` then `combine_splits`. Equal to
+    `attention_ref` except that a row with no visible key is 0 and the
+    probabilities are rounded to v's dtype before the PV product."""
+    part_o, part_ml = split_attention_partials(q, k, v, causal=causal,
+                                               window=window, split=split)
+    return combine_splits(part_o, part_ml, q.dtype)
 
 
 def _normalize(x, eps: float):

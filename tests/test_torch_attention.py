@@ -147,16 +147,35 @@ def test_plain_attention_rows_without_visible_keys():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(dtype):
-    """The Hopper kernel against the plain version on the card (needs a
-    CUDA device and nvcc; chip_smoke.py runs the full sweep)."""
+    """The Hopper kernels against the plain version on the card (needs a
+    CUDA device and nvcc; chip_smoke.py runs the full sweep): the sweep
+    (fp32 on the CUDA-core kernel, bf16 on the tensor-core prefill) and
+    decodes over strided cache prefixes (bf16 on the split-KV decode and
+    its combine, fp32 q on the CUDA-core kernel). Every call counts one
+    attention launch, and a split-KV call one combine launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for shape, causal, window in CASES:
-        _, ts = _both(_inputs(*shape), dtype)
-        tq, tk, tv = (t.cuda() for t in ts)
-        before = flash_attention.launches
+    from repro_torch.kernels.flash_attention import plan
+    decodes = [((3, 1, 300, 8, 8, 128), 512),     # ragged last split
+               ((2, 1, 777, 25, 5, 64), 1000),    # GQA 25/5
+               ((2, 4, 600, 8, 2, 64), 800)]      # S 4 appended
+    cases = [(_inputs(*shape), causal, window, None)
+             for shape, causal, window in CASES]
+    for (B, S, T, H, K, hd), cap in decodes:
+        q, ck, cv = _inputs(B, S, cap, H, K, hd)
+        cases.append(((q, ck, cv), True, 0, T))
+    for arrays, causal, window, prefix in cases:
+        tq, tk, tv = (torch.from_numpy(a).to(TDT[dtype]).cuda()
+                      for a in arrays)
+        if prefix is not None:
+            tk, tv = tk[:, :prefix], tv[:, :prefix]     # strided views
+        path = plan(tq, tk, tv).path
+        assert path == ("cuda_core" if dtype == "float32" else
+                        "prefill" if prefix is None else "split_decode")
+        before = (flash_attention.launches, flash_attention.combine_launches)
         got = flash_attention(tq, tk, tv, causal=causal, window=window)
-        assert flash_attention.launches == before + 1
+        assert (flash_attention.launches, flash_attention.combine_launches) \
+            == (before[0] + 1, before[1] + (path == "split_decode"))
         want = tref.attention_ref(tq, tk, tv, causal=causal, window=window)
         np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
                                    **TOL[dtype])
