@@ -8,7 +8,10 @@ Phases, in order; the script exits non-zero at the first failure:
 1. torch/CUDA versions and the card's name and power limit (nvidia-smi).
 2. Build every CUDA kernel of the port from this checkout (one nvcc per
    source, all started together) and print the build seconds and the
-   compiler's register / spill report.
+   compiler's register / spill report; then the SASS's tensor-core
+   instructions (HMMA) of flash_attention's and mlstm_scan's kernels,
+   required in their bf16 products and absent from their CUDA-core
+   kernels.
 3. Hold each kernel against its plain PyTorch version on the card: for
    flash_attention the tests/test_kernels.py sweep plus the serving shapes
    of olmo-1b (bf16 prefill (1, 512, 16, 16, 128) causal; decode S=1 over
@@ -20,7 +23,9 @@ Phases, in order; the script exits non-zero at the first failure:
    the six cases of tests/test_kernels.py, xlstm-350m's prefill shape (1,
    1024, 4, 512) bf16 at chunk 64 (output and final state), a ragged
    S = 1000 with the state also against the token-by-token oracle, and
-   the full shape in fp32 against the oracle; for fleet_drift and
+   the full shape in fp32 against the oracle, and in bf16 the tensor-core
+   path's 128-step tile at chunk 128 (S 1024) and chunk 96 (ragged S
+   1000, state also against the oracle); for fleet_drift and
    pairwise_js their CPU sweeps and the planes' full shapes. Tolerance
    fp32 2e-4, bf16 2e-2 (drift and JS 1e-5 / 1e-6 absolute).
 4. Serve olmo-1b, hymba-1.5b and xlstm-350m at full width through
@@ -40,12 +45,16 @@ Phases, in order; the script exits non-zero at the first failure:
    weights, bf16 compute, for the three models; for hymba and xlstm also
    fp32 compute.
 6. The drift plane at 100,000 streams and flash_crowd_10k's join storm
-   through the grouper, each kernel path against its exact or plain path.
+   through the grouper, each kernel path against its exact or plain path;
+   the storm keeps the index's signature block on the card and counts its
+   full-block and dirty-row uploads.
 7. Time each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls) at the
    serving shapes, with CUDA events after warm-up, rotating input buffers
    so that L2 does not hold them; print each beside the kernel's bound
-   from its bytes and operations and the data-sheet peaks of the card.
+   from its bytes and operations and the data-sheet peaks of the card
+   (mlstm_scan: on bf16 tensor cores, and on fp32 CUDA cores beside it).
+   Then the alternatives that `[sweep]` measures: flash_attention's plans.
 8. One `{"kernels": [...]}` JSON line, the nvidia-smi line again, and as
    the last line `{"ok": true, "device": {...}}`.
 
@@ -95,7 +104,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.fleet_drift import SOURCE as FD_SOURCE  # noqa: E402
 from repro_torch.kernels.fleet_drift import fleet_drift  # noqa: E402
 from repro_torch.kernels.mlstm_scan import SOURCE as ML_SOURCE  # noqa: E402
-from repro_torch.kernels.mlstm_scan import mlstm_scan  # noqa: E402
+from repro_torch.kernels.mlstm_scan import (  # noqa: E402
+    TENSOR_CORE as ML_TENSOR_CORE, mlstm_scan, plan as ml_plan)
 from repro_torch.kernels.pairwise_js import SOURCE as PJ_SOURCE  # noqa: E402
 from repro_torch.kernels.pairwise_js import pairwise_js  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
@@ -162,6 +172,11 @@ FA_KERNELS = {"cuda_core": ("attn_fwd_kernel",),
               "prefill": ("attn_prefill_kernel",),
               "split_decode": ("attn_decode_split_kernel",
                                "attn_decode_combine_kernel")}
+# mlstm_scan's CUDA kernels per path, as the profiler names them: the
+# bf16 tensor-core path's four launches, the CUDA-core kernel
+ML_TC_KERNELS = ("mlstm_gate_kernel", "mlstm_qk_kernel", "mlstm_state_kernel",
+                 "mlstm_out_kernel")
+ML_CC_KERNELS = ("mlstm_scan_kernel",)
 # kernels that no single PyTorch call computes: their library time is null
 NO_LIBRARY_CALL = ("fleet_drift", "pairwise_js", "ssd_scan", "mlstm_scan")
 
@@ -360,13 +375,12 @@ def check_attention():
     return max(serving)
 
 
-def tensor_core_report():
-    """The built flash_attention library's SASS: tensor-core (HMMA) and
-    fp32 FMA (FFMA) instruction counts of each kernel, which must show
-    HMMA in the prefill and split-decode kernels and none in the CUDA-core
-    kernel; then each kernel's registers and shared memory as the card
-    reports them."""
-    lib = _build.library_path(FA_SOURCE)
+def _sass_counts(source):
+    """Tensor-core (HMMA) and fp32 FMA (FFMA) instruction counts of each
+    kernel in the built library of `source`, from `cuobjdump -sass` (or,
+    without cuobjdump, the PTX's mma.sync / fma.rn.f32); returns
+    ({mangled kernel name: {"HMMA": n, "FFMA": n}}, what was read)."""
+    lib = _build.library_path(source)
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_build.nvcc_path()), "cuobjdump")
     counts = {}
@@ -383,40 +397,60 @@ def tensor_core_report():
                 for op in ("HMMA", "FFMA"):
                     if re.search(rf"\b{op}\b", line):
                         counts[name][op] += 1
-        source = "cuobjdump -sass"
-    else:       # no cuobjdump: the PTX's mma.sync / fma.rn.f32 instead
-        ptx = lib.with_suffix(".ptx")
-        subprocess.run([_build.nvcc_path(), "-gencode",
-                        "arch=compute_90a,code=compute_90a", "-std=c++17",
-                        "-O3", "-ptx", "-o", str(ptx),
-                        str(_build.CSRC / FA_SOURCE)], check=True,
-                       timeout=300)
-        name = None
-        for line in ptx.read_text().splitlines():
-            m = re.match(r"\.visible \.entry (\S+)\(|\.entry (\S+)\(",
-                         line.strip())
-            if m:
-                name = m.group(1) or m.group(2)
-                counts[name] = {"HMMA": 0, "FFMA": 0}
-            elif name:
-                counts[name]["HMMA"] += "mma.sync" in line
-                counts[name]["FFMA"] += "fma.rn.f32" in line
-        source = "PTX (mma.sync as HMMA, fma.rn.f32 as FFMA)"
+        return counts, "cuobjdump -sass"
+    ptx = lib.with_suffix(".ptx")
+    subprocess.run([_build.nvcc_path(), "-gencode",
+                    "arch=compute_90a,code=compute_90a", "-std=c++17", "-O3",
+                    "-ptx", "-o", str(ptx), str(_build.CSRC / source)],
+                   check=True, timeout=300)
+    name = None
+    for line in ptx.read_text().splitlines():
+        m = re.match(r"\.visible \.entry (\S+)\(|\.entry (\S+)\(",
+                     line.strip())
+        if m:
+            name = m.group(1) or m.group(2)
+            counts[name] = {"HMMA": 0, "FFMA": 0}
+        elif name:
+            counts[name]["HMMA"] += "mma.sync" in line
+            counts[name]["FFMA"] += "fma.rn.f32" in line
+    return counts, "PTX (mma.sync as HMMA, fma.rn.f32 as FFMA)"
+
+
+def _sass_by_kind(source, kinds):
+    """HMMA per kernel kind (summed over its instantiations), printing each
+    instantiation's HMMA and FFMA counts."""
+    counts, how = _sass_counts(source)
     hmma = {}
     for name, c in sorted(counts.items()):
-        kind = next((k for k in ("attn_prefill_kernel",
-                                 "attn_decode_split_kernel",
-                                 "attn_decode_combine_kernel",
-                                 "attn_fwd_kernel") if k in name), None)
+        kind = next((k for k in kinds if k in name), None)
         if kind is None:
             continue
         hmma[kind] = hmma.get(kind, 0) + c["HMMA"]
         args = name.split(kind, 1)[1].split("EEv")[0]   # template arguments
-        print(f"[sass] {source}: {kind}{args}: HMMA {c['HMMA']}, FFMA "
+        print(f"[sass] {how}: {kind}{args}: HMMA {c['HMMA']}, FFMA "
               f"{c['FFMA']}")
+    return hmma
+
+
+def tensor_core_report():
+    """The built flash_attention and mlstm_scan libraries' SASS: tensor-core
+    (HMMA) and fp32 FMA (FFMA) instruction counts of each kernel, which
+    must show HMMA in flash_attention's prefill and split-decode kernels
+    and in mlstm_scan's bf16 products (q k^T, the state walk, the output),
+    and none in either CUDA-core kernel; then flash_attention's registers
+    and shared memory as the card reports them."""
+    hmma = _sass_by_kind(FA_SOURCE, ("attn_prefill_kernel",
+                                     "attn_decode_split_kernel",
+                                     "attn_decode_combine_kernel",
+                                     "attn_fwd_kernel"))
     assert hmma.get("attn_prefill_kernel", 0) > 0, hmma
     assert hmma.get("attn_decode_split_kernel", 0) > 0, hmma
     assert hmma.get("attn_fwd_kernel", 1) == 0, hmma
+    ml = _sass_by_kind(ML_SOURCE, ML_TC_KERNELS + ML_CC_KERNELS)
+    for kind in ("mlstm_qk_kernel", "mlstm_state_kernel", "mlstm_out_kernel"):
+        assert ml.get(kind, 0) > 0, ml
+    assert ml.get("mlstm_scan_kernel", 1) == 0, ml
+    hmma.update(ml)
     for kernel in ("prefill", "prefill_2_groups", "split_decode", "combine",
                    "cuda_core"):
         for hdp in ((32, 64, 128) if kernel != "combine" else (128,)):
@@ -498,8 +532,11 @@ def check_mlstm():
     test_mlstm_kernel_sweep, xlstm-350m's prefill shape (1, 1024, 4, 512)
     bf16 at apply_mlstm_block's chunk (64), a ragged S = 1000 at that width
     with the state also against the token-by-token oracle, and the full
-    shape in fp32 against the oracle. Returns the largest error at the
-    prefill shape, bf16."""
+    shape in fp32 against the oracle. Then in bf16 the tensor-core path's
+    128-step tile, which chunks of 65 to 128 steps take (the kernel's
+    default chunk is 128): chunk 128 at S = 1024, and chunk 96 at the
+    ragged S = 1000, its state also against the oracle. Returns the
+    largest error at the prefill shape, bf16, chunk 64."""
     gen = torch.Generator(device=DEV).manual_seed(8)
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, H, P, chunk in [(1, 64, 2, 32, 16), (2, 96, 3, 16, 32),
@@ -512,18 +549,24 @@ def check_mlstm():
             _check(f"{name} h", h, wh, TOL[dtype])
             for leaf, a, w in zip("Cnm", st, wst):
                 _check(f"{name} state {leaf}", a, w, TOL[dtype])
-    for S, dtype in ((XL_PROMPT, torch.bfloat16), (XL_PROMPT, torch.float32),
-                     (XL_RAGGED, torch.bfloat16)):
+    bf16 = torch.bfloat16
+    for S, dtype, chunk in ((XL_PROMPT, bf16, MLSTM_CHUNK),
+                            (XL_PROMPT, torch.float32, MLSTM_CHUNK),
+                            (XL_RAGGED, bf16, MLSTM_CHUNK),
+                            (XL_PROMPT, bf16, 128), (XL_RAGGED, bf16, 96)):
         shape = (1, S, XL_HEADS, XL_P)
         args = _mlstm_inputs(*shape, dtype, gen)
-        h, st = mlstm_scan(*args, chunk=MLSTM_CHUNK, return_state=True)
-        wh, wst = mlstm_chunked(*args, chunk=MLSTM_CHUNK, return_state=True)
-        name = f"mlstm_scan xlstm {str(dtype)[6:]} {shape} chunk{MLSTM_CHUNK}"
+        if dtype == bf16:
+            assert ml_plan(*args[:3], chunk) == ML_TENSOR_CORE
+        h, st = mlstm_scan(*args, chunk=chunk, return_state=True)
+        wh, wst = mlstm_chunked(*args, chunk=chunk, return_state=True)
+        name = f"mlstm_scan xlstm {str(dtype)[6:]} {shape} chunk{chunk}"
         e = [_check(f"{name} h", h, wh, TOL[dtype])]
         e += [_check(f"{name} state {leaf}", a, w, TOL[dtype])
               for leaf, a, w in zip("Cnm", st, wst)]
-        if (S, dtype) == (XL_PROMPT, torch.bfloat16):
+        if (S, dtype, chunk) == (XL_PROMPT, bf16, MLSTM_CHUNK):
             errs = e
+        if S == XL_PROMPT and dtype == bf16:
             continue
         # fp32 at the prefill shape and the ragged length: also the oracle
         rh, rst = mlstm_recurrent(*args, return_state=True)
@@ -772,10 +815,12 @@ def profile_serving(arch):
         for e in top[:6]:
             print(f"[profile]   {e.device_time_total / 1e3 / n:8.3f} ms "
                   f"x{e.count // n:<4} {e.key[:90]}")
-        for kname in ("ssd_scan_kernel", "mlstm_scan_kernel"):
-            ev = [e for e in pr.key_averages() if kname in e.key]
+        for kname, parts in (("ssd_scan", ("ssd_scan_kernel",)),
+                             ("mlstm_scan", ML_TC_KERNELS + ML_CC_KERNELS)):
+            ev = [e for e in pr.key_averages()
+                  if any(k in e.key for k in parts)]
             if ev:
-                print(f"[profile]   {kname}: "
+                print(f"[profile]   {kname} kernels: "
                       f"{sum(e.device_time_total for e in ev) / 1e3 / n:.3f}"
                       f" ms of the device busy {busy / n:.3f} ms")
     if cfg.family == "hybrid":
@@ -1052,8 +1097,15 @@ def storm_requests(joiners=None):
 
 def _storm_grouper(impl):
     counter = [0]
-    return Grouper(new_job_fn=lambda r: DetJob(r, counter),
-                   index=SignatureIndex(BUCKETS, impl=impl, device="cuda"),
+    index = SignatureIndex(BUCKETS, impl=impl, device="cuda")
+    if impl == "ref":
+        # the plain path scores against the host block, copied whole to the
+        # card per request (the feed before the mirror), so it shares no
+        # mirror with the kernel path: a stale mirror row shows as a
+        # divergence of the two paths
+        index.device_signatures = lambda: torch.from_numpy(index._sig).to(
+            index.device)
+    return Grouper(new_job_fn=lambda r: DetJob(r, counter), index=index,
                    shortlist_k=SHORTLIST_K)
 
 
@@ -1062,12 +1114,34 @@ def grouping_storm():
     card at shortlist_k=2, once through the kernel and once through the
     plain version, request by request in lockstep: event lists and
     partitions must be equal. One pairwise_js launch per request that
-    reached the shortlist (the index held at least one job)."""
+    reached the shortlist (the index held at least one job). The kernel
+    path's signature block lives on the card: at most one full-block
+    upload per growth of the capacity plus the first, dirty rows
+    otherwise (the host time of each upload is kept), and after every
+    upload the mirror equals the host block (checked outside the
+    request's time). The plain path scores against the host block itself,
+    copied whole per request."""
     t0 = time.perf_counter()
     reqs = storm_requests()
     print(f"[group] {len(reqs)} join requests of flash_crowd_10k drawn in "
           f"{time.perf_counter() - t0:.2f}s")
     gk, gr = _storm_grouper("auto"), _storm_grouper("ref")
+    idx = gk.index
+    t_up = []                    # host time of each dirty-row upload
+    t_chk = [0.0]                # the current request's mirror check
+    upload = idx.device_signatures
+
+    def checked_upload():
+        t0 = time.perf_counter()
+        out = upload()
+        t1 = time.perf_counter()
+        t_up.append(t1 - t0)
+        assert torch.equal(out, torch.from_numpy(idx._sig).to(out.device)), \
+            f"signature mirror stale after upload {len(t_up)}"
+        t_chk[0] += time.perf_counter() - t1
+        return out
+
+    idx.device_signatures = checked_upload
     jobs_k, jobs_r = [], []
     reached, t_k, t_r, gaps = 0, [], [], []
     pairwise_js.launches = 0
@@ -1077,12 +1151,13 @@ def grouping_storm():
         gap = _shortlist_gap(gk, req)
         if gap is not None:
             gaps.append(gap)
+        t_chk[0] = 0.0
         t0 = time.perf_counter()
         gk.group_request(jobs_k, req)
         t1 = time.perf_counter()
         gr.group_request(jobs_r, dataclasses.replace(req))
         t2 = time.perf_counter()
-        t_k.append(t1 - t0)
+        t_k.append(t1 - t0 - t_chk[0])
         t_r.append(t2 - t1)
         if gk.events[-1] != gr.events[-1]:
             _explain_divergence(gk, gr, req)
@@ -1107,20 +1182,23 @@ def grouping_storm():
           f"1e-5 / 1e-6 / 1e-7 in {int((gaps < 1e-5).sum())} / "
           f"{int((gaps < 1e-6).sum())} / {int((gaps < 1e-7).sum())} of "
           f"them; smallest {gaps.min() if gaps.size else math.nan:.3e}")
-    copies = []
-    for _ in range(20):          # the block the index copies per request
-        t0 = time.perf_counter()
-        torch.from_numpy(gk.index._sig).to(DEV)
-        torch.cuda.synchronize()
-        copies.append(time.perf_counter() - t0)
-    stats = {"launches": launches, "capacity": gk.index.capacity,
+    growths = int(math.log2(idx.capacity // 64))
+    print(f"[group] signature block on the card: {idx.full_uploads} "
+          f"full-block uploads ({growths} growths of the capacity, 64 to "
+          f"{idx.capacity}), {idx.rows_uploaded} dirty rows uploaded in "
+          f"{len(t_up)} shortlist calls, the mirror equal to the host block "
+          f"after each")
+    assert idx.full_uploads <= 1 + growths, (idx.full_uploads, growths)
+    stats = {"launches": launches, "capacity": idx.capacity,
              "ms": _median_ms(t_k), "plain_ms": _median_ms(t_r),
-             "copy_ms": _median_ms(copies), "seconds": seconds}
+             "upload_ms": _median_ms(t_up), "seconds": seconds,
+             "full_uploads": idx.full_uploads,
+             "rows_uploaded": idx.rows_uploaded}
     print(f"[group] ms per request, median: kernel path {stats['ms']:.3f}, "
-          f"plain path {stats['plain_ms']:.3f}; of it the copy of the "
-          f"({stats['capacity']}, {BUCKETS}) signature block to the card "
-          f"{stats['copy_ms']:.3f}; the phase (both storms and the census) "
-          f"took {seconds:.1f}s")
+          f"plain path (the whole ({idx.capacity}, {BUCKETS}) block copied "
+          f"per request) {stats['plain_ms']:.3f}; of the kernel path the "
+          f"host's upload of the dirty rows {stats['upload_ms']:.4f}; "
+          f"the phase (both storms and the census) took {seconds:.1f}s")
     return stats
 
 
@@ -1214,7 +1292,7 @@ def _device_ms(fn, sets, kernels=None, iters=20):
     if kernels is None:
         print(f"[time]   library kernels: "
               f"{[(e.key[:60], e.count) for e in evs]}")
-    total = 0.0
+    total, parts = 0.0, []
     for name in names:
         mine = [e for e in evs if name in e.key]
         count = sum(e.count for e in mine)
@@ -1224,7 +1302,11 @@ def _device_ms(fn, sets, kernels=None, iters=20):
         if count < iters:
             print(f"[time] the profiler kept {count} of {iters} launches of "
                   f"{name[:60]}")
-        total += sum(e.device_time_total for e in mine) / count / 1e3
+        part = sum(e.device_time_total for e in mine) / count / 1e3
+        parts.append(f"{name[:40]} {part:.4f}")
+        total += part
+    if kernels is not None and len(names) > 1:
+        print(f"[time]   device ms per kernel: {'; '.join(parts)}")
     return total
 
 
@@ -1462,12 +1544,15 @@ def mlstm_cost(B, S, H, P, Q):
 def time_mlstm(pk):
     """mlstm_scan at xlstm-350m's prefill shape, bf16, apply_mlstm_block's
     chunk, state out, rotating 10 input sets (126 MB of q, k and v, past
-    L2). Bound from `mlstm_cost`, fp32 operations (the kernel's
-    arithmetic) against the card's fp32 peak outside the tensor cores."""
+    L2); the device time sums the tensor-core path's four kernels. Bounds
+    from `mlstm_cost` by the units the kernel uses: its products on bf16
+    tensor cores (the share), and beside it the fp32 CUDA-core bound that
+    PR 14's kernel was held to."""
     bf16 = torch.bfloat16
     gen = torch.Generator(device=DEV).manual_seed(10)
     B, S, H, P, Q = 1, XL_PROMPT, XL_HEADS, XL_P, MLSTM_CHUNK
     sets = [_mlstm_inputs(B, S, H, P, bf16, gen) for _ in range(10)]
+    assert ml_plan(*sets[0][:3], Q) == ML_TENSOR_CORE
     nbytes, flops = mlstm_cost(B, S, H, P, Q)
 
     def kern(*a):
@@ -1478,12 +1563,17 @@ def time_mlstm(pk):
 
     r = dict(shape=f"q,k,v ({B},{S},{H},{P}) bf16, chunk {Q}, state out",
              ms=_time_ms(kern, sets),
-             device_ms=_device_ms(kern, sets, "mlstm_scan_kernel"),
+             device_ms=_device_ms(kern, sets, ML_TC_KERNELS),
              plain_ms=_time_ms(plain, sets, iters=10),
              library_ms=None,
-             bound=_bound(nbytes, flops, torch.float32, pk))
+             bound=_bound(nbytes, flops, bf16, pk),
+             bound_cuda_core=_bound(nbytes, flops, torch.float32, pk))
+    bcc, bycc = r["bound_cuda_core"]
     print(f"[time] mlstm_scan least work: {nbytes / 1e6:.2f} MB, "
-          f"{flops / 1e9:.3f} GFLOP")
+          f"{flops / 1e9:.3f} GFLOP; bound on bf16 tensor cores "
+          f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), on fp32 CUDA cores "
+          f"{bcc:.4f} ms ({bycc}, kernel at {100 * bcc / r['device_ms']:.1f}% "
+          f"of it)")
     _print_time("mlstm_scan", r)
     return r
 
@@ -1600,12 +1690,16 @@ def main():
              tensor_core_hmma=hmma),
         _entry("fleet_drift", *src["fleet_drift"], launches["fleet_drift"],
                err["fleet_drift"], fd),
-        _entry("pairwise_js", *src["pairwise_js"], launches["pairwise_js"],
-               err["pairwise_js"], pj[1], requests_32=pj[32]),
+        dict(_entry("pairwise_js", *src["pairwise_js"],
+                    launches["pairwise_js"], err["pairwise_js"], pj[1],
+                    requests_32=pj[32]),
+             storm_full_uploads=storm["full_uploads"],
+             storm_rows_uploaded=storm["rows_uploaded"]),
         _entry("ssd_scan", *src["ssd_scan"], launches["ssd_scan"],
                err["ssd_scan"], ssd),
-        _entry("mlstm_scan", *src["mlstm_scan"], launches["mlstm_scan"],
-               err["mlstm_scan"], ml),
+        dict(_entry("mlstm_scan", *src["mlstm_scan"], launches["mlstm_scan"],
+                    err["mlstm_scan"], ml),
+             bound_cuda_core_ms=ml["bound_cuda_core"][0]),
     ]
     assert [e["name"] for e in kernels] == [k[0] for k in KERNELS]
     for e in kernels:

@@ -18,10 +18,17 @@ vectorized numpy prefilter plus one batched Jensen-Shannon call
 CUDA device, the plain version on the CPU). The Grouper then runs the
 expensive `eval_on` model check only on the top-k shortlist.
 
-The arrays stay on the host, as in the reference: each shortlist call
-copies the request signatures and the full capacity block to the
-index's `device`, and copies the (R, capacity) matrix back before the
-host gathers, masks and ranks it exactly as the reference does.
+The arrays stay on the host and stay authoritative, as in the reference.
+The signature block also has a mirror on the index's `device` (a torch
+tensor, on the CPU too, so the CPU tests run the same code): every row
+`_set_sig` or `remove` touches is marked dirty, and before a shortlist
+call one indexed copy uploads the dirty rows. A growth of the capacity,
+`load_state_dict` and `rebuild` mark the whole mirror stale, and the next
+call uploads the block whole. The fp32 rows are copied, never
+recomputed, so the kernel sees the host's values bit for bit.
+`full_uploads` and `rows_uploaded` count the two kinds of upload. The
+(R, capacity) matrix comes back to the host, which gathers, masks and
+ranks it exactly as the reference does.
 
 Exactness: the prefilter reproduces the Python scan bit-for-bit (same
 float64 ops in the same order), so for k >= #passing jobs the grouping
@@ -63,6 +70,10 @@ class SignatureIndex:
         self._gen = 0              # bumped on any mutation
         self._seg_gen = -1         # generation the segment cache is at
         self._seg = None           # (rows_sorted, starts, seg_keys)
+        self._sig_dev = None       # mirror of _sig on `device`; None = stale
+        self._dirty = set()        # rows of _sig the mirror has not seen
+        self.full_uploads = 0      # uploads of the whole block
+        self.rows_uploaded = 0     # dirty rows uploaded one by one
 
     # -- bookkeeping --------------------------------------------------------
     def __len__(self) -> int:
@@ -83,6 +94,7 @@ class SignatureIndex:
         self._job = np.concatenate([self._job, np.full(old, -1, np.int64)])
         self._active = np.concatenate([self._active, np.zeros(old, bool)])
         self._free.extend(range(new - 1, old - 1, -1))
+        self._sig_dev = None       # reallocated whole at the next upload
 
     def job_key(self, job_id: str) -> int:
         """Intern a job id (keys are dense ints in creation order)."""
@@ -108,6 +120,7 @@ class SignatureIndex:
                              f"index holds {self.buckets}")
         self._sig[row] = s
         self._has_sig[row] = True
+        self._dirty.add(row)
 
     def upsert(self, stream_id: str, t: float, loc, sig=None) -> int:
         """Insert/refresh a stream's request row; clears job assignment
@@ -159,6 +172,7 @@ class SignatureIndex:
             self._has_sig[row] = False
             self._job[row] = -1
             self._free.append(row)
+            self._dirty.add(row)
 
     # -- snapshot / restore (elastic window rollback) -----------------------
     def state_dict(self) -> dict:
@@ -179,6 +193,7 @@ class SignatureIndex:
         self._free = list(state["free"])
         self._jobkey = dict(state["jobkey"])
         self._gen += 1              # invalidate the segment cache
+        self._sig_dev = None        # re-uploaded whole
 
     def rebuild(self, jobs):
         """Re-derive membership from a jobs list mutated externally."""
@@ -192,6 +207,23 @@ class SignatureIndex:
                 known.add(m.stream_id)
         for sid in [s for s in self._row if s not in known]:
             self.remove(sid)
+        self._sig_dev = None        # re-uploaded whole
+
+    def device_signatures(self):
+        """The (capacity, buckets) fp32 signature block on `device`, equal
+        to the host's `_sig`: the whole block after a growth, a restore or
+        a rebuild, else the dirty rows in one indexed copy."""
+        if self._sig_dev is None:
+            self._sig_dev = torch.from_numpy(self._sig).to(self.device,
+                                                           copy=True)
+            self.full_uploads += 1
+        elif self._dirty:
+            rows = np.fromiter(self._dirty, np.int64, len(self._dirty))
+            self._sig_dev[torch.from_numpy(rows).to(self.device)] = \
+                torch.from_numpy(self._sig[rows]).to(self.device)
+            self.rows_uploaded += rows.size
+        self._dirty.clear()
+        return self._sig_dev
 
     # -- the vectorized queries ---------------------------------------------
     def _segments(self):
@@ -291,10 +323,10 @@ class SignatureIndex:
             q = np.stack([np.asarray(s, np.float32).reshape(-1)
                           for s in sigs])
             # score against the full capacity block, as the reference
-            # does (inactive rows are all-zero and stay finite); the
-            # host ranks the copied-back matrix
+            # does (inactive rows are all-zero and stay finite), from the
+            # mirror on the device; the host ranks the copied-back matrix
             d = ops.pairwise_js(torch.from_numpy(q).to(self.device),
-                                torch.from_numpy(self._sig).to(self.device),
+                                self.device_signatures(),
                                 impl=self.impl).cpu().numpy()
             d = d[:, rows_sorted].astype(np.float64)
             d = np.where(mhas[None, :], d, np.inf)

@@ -27,77 +27,173 @@
 // operations against 4 (N B + M B + N M) bytes); at N = 1 (one request
 // against the fleet) it is bound by the bytes of q and by the launch.
 //
-// Design (simple and correct first):
-//   * The grouper asks with N = 1 request against M = the index capacity,
-//     so the parallelism comes from M: one warp per q row, 8 warps per
-//     block, grid (ceil(M / 8), ceil(N / TN)).
-//   * Each block first stages its TN p rows, normalised, in shared memory
-//     (a warp per row). TN * B <= 2048, so TN = 32 at B = 64.
-//   * Each warp loads its q row coalesced (lanes over buckets), normalises
-//     it into its own shared strip, then for each staged p row sums the KL
-//     terms over the buckets (lanes stride 32) with a warp shuffle
-//     reduction; lane 0 writes out[i, j].
-//   * Accurate logf and IEEE division (no fast math), all fp32.
+// Design: the fleet rows as a memory stream. PR 12's kernel gave each q
+// row a warp (2 buckets a lane at B = 64), read the row twice with 4-byte
+// loads, ran two 5-step shuffle sums per row and renormalised the request
+// row in every block: a chain of dependent latencies, 0.0114 ms where the
+// bytes take 0.0013.
+//   * A group of LPR lanes owns one q row (8 lanes at B <= 128, 16 at
+//     B <= 256, 32 at B <= 1024), so a warp has 32 / LPR rows in flight. Each lane loads its NV
+//     16-byte pieces of the row once (lanes of a group on neighbouring
+//     pieces) and keeps them in registers for the sum and for the terms;
+//     the sums over the group take log2(LPR) shuffles (3 at B = 64).
+//   * The block's TN request rows (TN B <= 2048 floats) are normalised
+//     once, by one group each, into shared memory in the same register
+//     layout, while the fleet rows' loads are in flight; at N = 1 every
+//     group reads the one row as a broadcast.
+//   * Grid (ceil(M / rows per block), ceil(N / TN)), 8 warps a block.
+//     Groups that walk rows a grid apart and load the next row while
+//     computing this one were slower (PERF.md, PR 16).
+//   * Per element the arithmetic is PR 12's: the eps shift, IEEE division
+//     by the row sum, accurate logf and the KL form; only the order of the
+//     sums differs. Unaligned rows or B % 4 != 0 read 4-byte pieces into
+//     the same layout.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTileFloats = 2048;  // TN * B of the staged p tile
+constexpr int kTileFloats = 2048;  // TN * (padded B) of the staged p tile
 constexpr int kMaxBuckets = 1024;
 
-__device__ __forceinline__ float warp_sum(float x) {
+// sum over the LPR lanes of a group (aligned lanes of one warp); the
+// shuffles name the group's lanes only, so groups of a warp may diverge
+template <int LPR>
+__device__ __forceinline__ float group_sum(float x) {
+  const unsigned mask =
+      LPR == 32 ? 0xffffffffu
+                : ((1u << (LPR & 31)) - 1u) << ((threadIdx.x & 31) / LPR * LPR);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int o = LPR / 2; o > 0; o >>= 1) x += __shfl_xor_sync(mask, x, o);
   return x;
 }
 
-// normalise row `src` (B floats) with the eps shift into `dst` (shared
-// memory); the warp's lanes stride over the buckets
-__device__ void stage_row(const float* __restrict__ src, float* dst, int B,
-                          float eps, int lane) {
-  float s = 0.f;
-  for (int b = lane; b < B; b += 32) s += __ldg(src + b) + eps;
-  s = warp_sum(s);
-  for (int b = lane; b < B; b += 32) dst[b] = (__ldg(src + b) + eps) / s;
+// Lane `sub` of a group: elements (sub + LPR v) * 4 + c of row `src`
+// (B floats), zero past B; 16-byte loads when `vec`.
+template <int LPR, int NV>
+__device__ __forceinline__ void load_row(float4 (&x)[NV],
+                                         const float* __restrict__ src, int B,
+                                         int sub, bool vec) {
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int e = (sub + LPR * v) * 4;
+    if (vec) {
+      x[v] = e < B ? __ldg(reinterpret_cast<const float4*>(src + e))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      x[v].x = e < B ? __ldg(src + e) : 0.f;
+      x[v].y = e + 1 < B ? __ldg(src + e + 1) : 0.f;
+      x[v].z = e + 2 < B ? __ldg(src + e + 2) : 0.f;
+      x[v].w = e + 3 < B ? __ldg(src + e + 3) : 0.f;
+    }
+  }
 }
 
+// the eps shift and the division by the row sum, in place; 0 past B
+template <int LPR, int NV>
+__device__ __forceinline__ void normalise(float4 (&x)[NV], int B, int sub,
+                                          float eps) {
+  float s = 0.f;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int e = (sub + LPR * v) * 4;
+    if (e < B) s += x[v].x + eps;
+    if (e + 1 < B) s += x[v].y + eps;
+    if (e + 2 < B) s += x[v].z + eps;
+    if (e + 3 < B) s += x[v].w + eps;
+  }
+  s = group_sum<LPR>(s);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int e = (sub + LPR * v) * 4;
+    x[v].x = e < B ? (x[v].x + eps) / s : 0.f;
+    x[v].y = e + 1 < B ? (x[v].y + eps) / s : 0.f;
+    x[v].z = e + 2 < B ? (x[v].z + eps) / s : 0.f;
+    x[v].w = e + 3 < B ? (x[v].w + eps) / s : 0.f;
+  }
+}
+
+// p log(p/m) + q log(q/m), m = (p + q) / 2
+__device__ __forceinline__ float kl_term(float pv, float qv) {
+  const float m = 0.5f * (pv + qv);
+  return pv * logf(pv / m) + qv * logf(qv / m);
+}
+
+// out[i0 + r, j] for the block's staged p rows r, from the normalised q
+// row j in the group's registers
+template <int LPR, int NV>
+__device__ __forceinline__ void js_row(const float4 (&x)[NV],
+                                       const float4* ps, float* out, int i0,
+                                       int tn, int j, int M, int B,
+                                       int sub) {
+  constexpr int PIECES = LPR * NV;
+  for (int r = 0; r < tn; ++r) {
+    float kl = 0.f;  // sum over b of p log(p/m) + q log(q/m)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int e = (sub + LPR * v) * 4;
+      const float4 pv = ps[r * PIECES + sub + LPR * v];
+      if (e < B) kl += kl_term(pv.x, x[v].x);
+      if (e + 1 < B) kl += kl_term(pv.y, x[v].y);
+      if (e + 2 < B) kl += kl_term(pv.z, x[v].z);
+      if (e + 3 < B) kl += kl_term(pv.w, x[v].w);
+    }
+    kl = group_sum<LPR>(kl);
+    if (sub == 0) out[static_cast<long long>(i0 + r) * M + j] = 0.5f * kl;
+  }
+}
+
+template <int LPR, int NV>
 __global__ void __launch_bounds__(kThreads)
 pairwise_js_kernel(const float* __restrict__ p, const float* __restrict__ q,
                    float* __restrict__ out, int N, int M, int B, int TN,
-                   float eps) {
-  extern __shared__ float smem[];
-  float* ps = smem;                    // (TN, B) normalised p rows
-  float* qs = ps + TN * B;             // (kWarps, B) one q row per warp
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+                   float eps, bool vec) {
+  constexpr int RPW = 32 / LPR;         // q rows per warp
+  constexpr int RPB = kWarps * RPW;     // q rows per block
+  constexpr int PIECES = LPR * NV;      // float4 pieces of a padded row
+  extern __shared__ float4 ps[];        // (TN, PIECES) normalised p rows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = lane % LPR, grp = lane / LPR;
   const int i0 = blockIdx.y * TN;
   const int tn = min(TN, N - i0);
 
-  for (int r = warp; r < tn; r += kWarps)
-    stage_row(p + static_cast<long long>(i0 + r) * B, ps + r * B, B, eps,
-              lane);
-  __syncthreads();
-
-  const int j = blockIdx.x * kWarps + warp;
-  if (j >= M) return;
-  float* qrow = qs + warp * B;
-  stage_row(q + static_cast<long long>(j) * B, qrow, B, eps, lane);
-  __syncwarp();
-  for (int r = 0; r < tn; ++r) {
-    const float* prow = ps + r * B;
-    float kl = 0.f;  // sum over b of p log(p/m) + q log(q/m)
-    for (int b = lane; b < B; b += 32) {
-      const float pv = prow[b], qv = qrow[b];
-      const float m = 0.5f * (pv + qv);
-      kl += pv * logf(pv / m) + qv * logf(qv / m);
-    }
-    kl = warp_sum(kl);
-    if (lane == 0) out[static_cast<long long>(i0 + r) * M + j] = 0.5f * kl;
+  // the fleet row's loads go out first, to overlap the staging of p
+  const int j = blockIdx.x * RPB + warp * RPW + grp;
+  const bool live = j < M;
+  float4 x[NV];
+  if (live)
+    load_row<LPR, NV>(x, q + static_cast<long long>(j) * B, B, sub, vec);
+  for (int r = warp * RPW + grp; r < tn; r += RPB) {
+    float4 y[NV];
+    load_row<LPR, NV>(y, p + static_cast<long long>(i0 + r) * B, B, sub, vec);
+    normalise<LPR, NV>(y, B, sub, eps);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) ps[r * PIECES + sub + LPR * v] = y[v];
   }
+  __syncthreads();
+  if (!live) return;  // whole groups leave together
+  normalise<LPR, NV>(x, B, sub, eps);
+  js_row<LPR, NV>(x, ps, out, i0, tn, j, M, B, sub);
+}
+
+template <int LPR, int NV>
+int launch(const float* p, const float* q, float* out, int N, int M, int B,
+           float eps, cudaStream_t stream) {
+  constexpr int pieces = LPR * NV;
+  const int tn = max(1, min(32, kTileFloats / (4 * pieces)));
+  const dim3 grid((M + kWarps * (32 / LPR) - 1) / (kWarps * (32 / LPR)),
+                  (N + tn - 1) / tn);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = B % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const size_t smem = static_cast<size_t>(tn) * pieces * sizeof(float4);
+  pairwise_js_kernel<LPR, NV><<<grid, kThreads, smem, stream>>>(
+      p, q, out, N, M, B, tn, eps, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -109,18 +205,16 @@ extern "C" {
 int pairwise_js_fwd(const void* p, const void* q, void* out, int N, int M,
                     int B, float eps, void* stream) {
   if (N <= 0 || M <= 0) return 0;
+  const float* pp = static_cast<const float*>(p);
+  const float* qq = static_cast<const float*>(q);
+  float* oo = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || B > kMaxBuckets)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tn = max(1, min(32, kTileFloats / B));
-  const dim3 grid((M + kWarps - 1) / kWarps, (N + tn - 1) / tn);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      (static_cast<size_t>(tn) + kWarps) * B * sizeof(float);
-  pairwise_js_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<const float*>(q),
-      static_cast<float*>(out), N, M, B, tn, eps);
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 64) return launch<8, 2>(pp, qq, oo, N, M, B, eps, s);
+  if (B <= 128) return launch<8, 4>(pp, qq, oo, N, M, B, eps, s);
+  if (B <= 256) return launch<16, 4>(pp, qq, oo, N, M, B, eps, s);
+  return launch<32, 8>(pp, qq, oo, N, M, B, eps, s);
 }
 
 }  // extern "C"

@@ -5,13 +5,16 @@ The kernel (`csrc/mlstm_scan.cu`, CUDA C++ for sm_90a) replaces the JAX
 package's Pallas TPU kernel `mlstm_scan` (src/repro/kernels/mlstm_scan.py)
 and computes the same function as `ref.mlstm_chunked`, returning the final
 (C, n, m) state as well; the source's header note says what bounds it and
-how it is laid out.
+how it is laid out. `plan` picks the path by dtype and layout: bf16 with
+16-byte rows goes to the tensor-core kernels (four launches of one call,
+the chunkwise-parallel form that `ref.mlstm_chunk_parallel` transcribes),
+everything else to the CUDA-core kernel.
 
 `mlstm_scan(q, k, v, igate, fgate)` launches the kernel for CUDA tensors
 and raises on anything the kernel does not take. For CPU tensors it
 computes the plain version `ref.mlstm_chunked` (the CPU tests' path); no
-CUDA call ever falls back to it. `mlstm_scan.launches` counts kernel
-launches.
+CUDA call ever falls back to it. `mlstm_scan.launches` counts calls that
+launched the kernel (one per call, whichever path).
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 232448       # csrc/mlstm_scan.cu kMaxSmemBytes
 MAX_CHUNK = 128               # the largest tile the kernel is built for
 ROWS_PER_BLOCK = 32           # csrc/mlstm_scan.cu kPT
+MAX_GRID_YZ = 65535
+CUDA_CORE, TENSOR_CORE = 0, 1  # csrc/mlstm_scan.cu `path`
 
 
 def chunk_tile(Q: int) -> int:
@@ -45,18 +50,56 @@ def smem_bytes(Q: int, P: int) -> int:
                 + 6 * QT + 4)
 
 
+def tensor_core_tile(Q: int) -> int:
+    """The tensor-core path's chunk tile for a chunk of Q steps."""
+    return 64 if Q <= 64 else 128
+
+
+def scratch_bytes(B: int, S: int, H: int, P: int, Q: int) -> int:
+    """Scratch of the tensor-core path (csrc/mlstm_scan.cu `carve`): per
+    head five fp32 per-step gate arrays, four fp32 per-chunk ones, the row
+    sums, W (hi, lo bf16) and own normaliser sum of every chunk, and n and
+    C (hi, lo bf16) entering every chunk after the first; each rounded up
+    to 256 bytes."""
+    BH, nch, QT = B * H, -(-S // Q), tensor_core_tile(Q)
+    Sp = nch * Q
+    kept = nch - 1
+    sizes = [4 * BH * Sp] * 5 + [4 * BH * nch] * 4 + [
+        4 * BH * nch * QT, 2 * BH * nch * 2 * QT * QT, 4 * BH * nch * P,
+        4 * BH * kept * P, 2 * BH * kept * 2 * P * P]
+    return sum(-(-n // 256) * 256 for n in sizes)
+
+
+def plan(q, k, v, Q: int) -> int:
+    """The path for these inputs: TENSOR_CORE for bf16 whose q, k, v rows
+    are 16-byte aligned (P % 8 == 0, pointers at 16 bytes, strides in
+    multiples of 8 elements) and whose grid fits; CUDA_CORE otherwise
+    (fp32, or unaligned bf16), as flash_attention routes such rows."""
+    B, S, H, P = q.shape
+    if q.dtype != torch.bfloat16 or P % 8:
+        return CUDA_CORE
+    if B * H > MAX_GRID_YZ or -(-S // Q) > MAX_GRID_YZ:
+        return CUDA_CORE
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            return CUDA_CORE
+    return TENSOR_CORE
+
+
 def _library():
     lib = _build.load(SOURCE)
     fn = lib.mlstm_scan_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 5 + [ctypes.c_float]
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                       + [ctypes.c_float]
                        + [ctypes.c_longlong] * 18 + [ctypes.c_void_p])
     return lib
 
 
 def _check(q, k, v, igate, fgate, Q):
+    """Raise on what neither kernel takes; return the path `plan` picks."""
     for name, t in (("k", k), ("v", v), ("igate", igate), ("fgate", fgate)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -82,9 +125,11 @@ def _check(q, k, v, igate, fgate, Q):
     if B * H > 2 ** 31 - 1 or -(-P // ROWS_PER_BLOCK) > 65535:
         raise ValueError(f"grid ({B * H}, {-(-P // ROWS_PER_BLOCK)}) too "
                          f"large")
-    if smem_bytes(Q, P) > MAX_SMEM_BYTES:
+    path = plan(q, k, v, Q)
+    if path == CUDA_CORE and smem_bytes(Q, P) > MAX_SMEM_BYTES:
         raise ValueError(f"chunk {Q}, P {P} need {smem_bytes(Q, P)} bytes "
                          f"of shared memory > {MAX_SMEM_BYTES}")
+    return path
 
 
 def mlstm_scan(q, k, v, igate, fgate, *, chunk: int = 128,
@@ -106,7 +151,7 @@ def mlstm_scan(q, k, v, igate, fgate, *, chunk: int = 128,
         raise ValueError(f"chunk must be >= 1; got {chunk}")
     B, S, H, P = q.shape
     Q = min(chunk, S) if S else 1
-    _check(q, k, v, igate, fgate, Q)
+    path = _check(q, k, v, igate, fgate, Q)
     dev = q.device
     h = torch.empty((B, S, H, P), dtype=q.dtype, device=dev)
     state = None
@@ -122,14 +167,20 @@ def mlstm_scan(q, k, v, igate, fgate, *, chunk: int = 128,
         return (h, state) if return_state else h
     lib = _library()
     C, n, m = state if state is not None else (None, None, None)
+    scratch, nbytes = None, 0
+    if path == TENSOR_CORE:
+        nbytes = scratch_bytes(B, S, H, P, Q)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mlstm_scan_fwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _DTYPES[q.dtype], path, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             igate.data_ptr(), fgate.data_ptr(), h.data_ptr(),
             None if C is None else C.data_ptr(),
             None if n is None else n.data_ptr(),
-            None if m is None else m.data_ptr(), B, S, H, P, Q,
+            None if m is None else m.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), nbytes,
+            B, S, H, P, Q,
             1.0 / math.sqrt(P), *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *igate.stride(), *fgate.stride(),
             *h.stride()[:3], stream)

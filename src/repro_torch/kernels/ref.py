@@ -387,3 +387,107 @@ def mlstm_recurrent(q, k, v, igate, fgate, *, init_state=None,
         m = m_new
     h = torch.stack(hs, dim=1).to(q.dtype) if S else torch.zeros_like(q)
     return (h, (C, n, m)) if return_state else h
+
+
+def mlstm_chunk_parallel(q, k, v, igate, fgate, *, chunk: int = 64,
+                         bf16_split: bool = False,
+                         return_state: bool = False):
+    """The chunkwise-parallel mLSTM of the `mlstm_scan` kernel's bf16 path,
+    step by step in plain PyTorch: the tests' transcript of the kernel.
+
+    Same function as `mlstm_chunked`, computed in the kernel's four phases:
+      0. gates and stabilisers, per head: b (the in-chunk cumsum of
+         log sigmoid(f)), the chunk-end weights a_j = i_j + b_Q - b_j, the
+         state stabiliser m_c = max(b_Q + m_{c-1}, max_j a_j) scanned over
+         the chunks, and each row's m_i = max(b_i + max_{j<=i}(i_j - b_j),
+         b_i + m_{c-1}, -1e30);
+      1. per chunk, the masked weights W_ij = (q_i . k_j) e^{b_i - b_j +
+         i_j - m_i} (j <= i) and their row sums;
+      2. the state, walked over the chunks: C_c = e^{b_Q + m_{c-1} - m_c}
+         C_{c-1} + sum_j (e^{a_j - m_c} v_j) k_j^T (n likewise with k),
+         keeping each chunk's entry state C_{c-1}, n_{c-1};
+      3. per chunk, h_i = (W v + beta_i q_i C_{c-1}^T) / max(|sum_j W_ij +
+         beta_i q_i . n_{c-1}|, e^{-m_i}), beta_i = e^{b_i + m_{c-1} - m_i}.
+    With `bf16_split` the three weighted operands of the kernel's
+    tensor-core products, e^{a_j - m_c} v_j, C_{c-1} and W, become what
+    the kernel feeds them as: two bf16 halves hi = bf16(x), lo = bf16(x -
+    hi), each a product of its own (hi + lo is exact in fp32). One bf16
+    rounding of any of the three moves h by more than the bf16 tolerance
+    at xlstm-350m's width, where a small denominator magnifies the
+    numerator's error. Everything else is fp32, as in the kernel. Returns
+    h (B,S,H,P) in q.dtype [, (C, n, m) fp32].
+    """
+    B, S, H, P = q.shape
+    C, nv, m = _mlstm_init(B, H, P, q.device, None)
+    if S == 0:
+        h = torch.zeros_like(q)
+        return (h, (C, nv, m)) if return_state else h
+
+    def rnd(x):
+        if not bf16_split:
+            return x
+        hi = x.to(torch.bfloat16).to(F32)
+        return hi + (x - hi).to(torch.bfloat16).to(F32)
+
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    pd = torch.nn.functional.pad
+    qf, kf, vf = q.to(F32), k.to(F32), v.to(F32)
+    ig = igate.to(F32)
+    lf = torch.nn.functional.logsigmoid(fgate.to(F32))
+    if pad:
+        qf, kf, vf = (pd(t, (0, 0, 0, 0, 0, pad)) for t in (qf, kf, vf))
+        ig = pd(ig, (0, 0, 0, pad), value=-1e30)
+        lf = pd(lf, (0, 0, 0, pad))
+    n_ch = (S + pad) // Q
+    shape = (B, n_ch, Q, H)
+    qc, kc, vc = (t.reshape(*shape, P) for t in (qf, kf, vf))
+    ig = ig.reshape(shape)
+    b = torch.cumsum(lf.reshape(shape), dim=2)
+    b_last = b[:, :, -1, :]
+    scale = 1.0 / math.sqrt(P)
+
+    # phase 0: gates and stabilisers
+    a = ig + (b_last[:, :, None, :] - b)
+    a_max = a.amax(dim=2)
+    m_prev, w_in, w_old = [], [], []
+    for c in range(n_ch):
+        m_new = torch.maximum(b_last[:, c] + m, a_max[:, c])
+        m_prev.append(m)
+        w_old.append(torch.exp(b_last[:, c] + m - m_new))
+        w_in.append(torch.exp(a[:, c] - m_new[:, None, :]))
+        m = m_new
+    m_prev = torch.stack(m_prev, dim=1)                          # (B,n,H)
+    m_row = torch.maximum(b + torch.cummax(ig - b, dim=2).values,
+                          b + m_prev[:, :, None, :]).clamp(min=-1e30)
+    beta = torch.exp(b + m_prev[:, :, None, :] - m_row)          # (B,n,Q,H)
+
+    # phase 1: masked weights
+    d = b[:, :, :, None, :] - b[:, :, None, :, :] + ig[:, :, None, :, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=q.device).tril()
+    d = torch.where(mask[None, None, :, :, None], d - m_row[:, :, :, None],
+                    -math.inf)
+    W = torch.einsum("bnihp,bnjhp->bnijh", qc, kc) * scale * torch.exp(d)
+    rowsum = W.sum(dim=3)                                        # (B,n,Q,H)
+
+    # phase 2: the state walk, keeping each chunk's entry state
+    C_prev, n_prev = [], []
+    for c in range(n_ch):
+        C_prev.append(C)
+        n_prev.append(nv)
+        C = w_old[c][:, :, None, None] * C + torch.einsum(
+            "bqhp,bqhr->bhpr", rnd(w_in[c][..., None] * vc[:, c]), kc[:, c])
+        nv = w_old[c][:, :, None] * nv + torch.einsum(
+            "bqh,bqhr->bhr", w_in[c], kc[:, c])
+    C_prev = torch.stack(C_prev, dim=1)                          # (B,n,H,P,P)
+    n_prev = torch.stack(n_prev, dim=1)                          # (B,n,H,P)
+
+    # phase 3: outputs
+    inter = torch.einsum("bnihr,bnhpr->bnihp", qc, rnd(C_prev)) * scale
+    qn = torch.einsum("bnihr,bnhr->bnih", qc, n_prev) * scale
+    num = torch.einsum("bnijh,bnjhp->bnihp", rnd(W), vc) \
+        + beta[..., None] * inter
+    den = torch.maximum((rowsum + beta * qn).abs(), torch.exp(-m_row))
+    h = (num / den[..., None]).reshape(B, n_ch * Q, H, P)[:, :S]
+    h = h.to(q.dtype)
+    return (h, (C, nv, m)) if return_state else h

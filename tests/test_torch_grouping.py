@@ -275,6 +275,148 @@ def test_index_device_and_impl():
 
 
 # ---------------------------------------------------------------------------
+# the signature block's mirror on the index's device
+# ---------------------------------------------------------------------------
+def _mirror_equal(idx):
+    mirror = idx._sig_dev
+    assert mirror is not None and mirror.dtype == torch.float32
+    assert torch.equal(mirror.cpu(), torch.from_numpy(idx._sig))
+
+
+def _churn_mirror(device):
+    """upsert, refresh_sig, remove, growths, load_state_dict and rebuild,
+    each followed by a shortlist call: after every call the mirror equals
+    the host block; a call uploads the whole block exactly when it is the
+    first or the block grew, was restored or rebuilt since the last one,
+    and otherwise only the rows written since (one per signature write or
+    removal)."""
+    rng = np.random.default_rng(21)
+    idx = tsig.SignatureIndex(buckets=16, capacity=8, device=device)
+    stale, writes, snap = True, set(), None
+
+    def shortlist():
+        nonlocal stale
+        before = (idx.full_uploads, idx.rows_uploaded)
+        idx.candidate_jobs_batch([0.0], [(0.0, 0.0)], eps_t=1e9,
+                                 delta_loc=1e9, k=2,
+                                 sigs=[rng.random(16).astype(np.float32)])
+        _mirror_equal(idx)
+        want = (before[0] + 1, before[1]) if stale else \
+            (before[0], before[1] + len(writes))
+        assert (idx.full_uploads, idx.rows_uploaded) == want
+        stale = False
+        writes.clear()
+
+    for step in range(150):
+        sid = f"s{int(rng.integers(0, 50))}"
+        op = int(rng.integers(0, 5))
+        cap = idx.capacity
+        if op <= 1:
+            row = idx.upsert(sid, 0.0, (0.0, 0.0),
+                             rng.random(16).astype(np.float32))
+            idx.assign(sid, f"j{int(rng.integers(0, 5))}")
+            writes.add(row)
+        elif op == 2 and sid in idx._row:
+            writes.add(idx._row[sid])
+            idx.refresh_sig(sid, rng.random(16).astype(np.float32))
+        elif op == 3 and sid in idx._row:
+            writes.add(idx._row[sid])
+            idx.remove(sid)
+        elif op == 4:
+            snap = idx.state_dict()
+        if step == 100:
+            idx.load_state_dict(snap)
+            stale = True
+        stale |= idx.capacity != cap
+        if (idx._job >= 0).any():
+            shortlist()
+    assert idx.capacity >= 32               # grew at least 8 -> 16 -> 32
+    jobs = [DetJob(tgroup.Request(stream_id="r0", t=0.0, loc=(0.0, 0.0),
+                                  subsamples=0, acc=0.0,
+                                  sig=np.ones(16, np.float32)), [0])]
+    idx.rebuild(jobs)
+    stale = True
+    shortlist()
+    shortlist()                             # nothing changed: no upload
+    # state_dict is the host's, unchanged by the mirror
+    assert set(idx.state_dict()) == {"sig", "has_sig", "t", "loc", "job",
+                                     "active", "row", "free", "jobkey"}
+
+
+def test_signature_mirror_matches_host_under_churn():
+    _churn_mirror("cpu")
+
+
+def _storm_uploads(device):
+    """100 grouping requests through a Grouper whose index starts at
+    capacity 8: one whole-block upload per capacity its shortlist calls
+    saw (the first call's and one per growth), none per request beyond
+    that; each request's own row goes up as a dirty row."""
+    rng = np.random.default_rng(5)
+    counter = [0]
+    idx = tsig.SignatureIndex(buckets=64, capacity=8, device=device)
+    g = tgroup.Grouper(eps_t=1e9, delta_loc=1e9, p_drop=0.05,
+                       new_job_fn=lambda r: DetJob(r, counter), index=idx,
+                       shortlist_k=2)
+    jobs, seen = [], set()
+    for i in range(100):
+        g.group_request(jobs, tgroup.Request(
+            stream_id=f"s{i}", t=0.0, loc=(0.0, 0.0), subsamples=i,
+            acc=float(rng.random()), sig=rng.random(64).astype(np.float32)))
+        if idx._sig_dev is not None:
+            seen.add(idx._sig_dev.shape[0])
+            _mirror_equal(idx)
+    assert idx.capacity == 128
+    assert seen == {16, 32, 64, 128} or seen == {8, 16, 32, 64, 128}
+    assert idx.full_uploads == len(seen)
+    assert 0 < idx.rows_uploaded <= 100
+
+
+def test_requests_upload_the_block_once_per_growth():
+    _storm_uploads("cpu")
+
+
+@pytest.mark.gpu
+def test_signature_mirror_on_the_card():
+    """The mirror invariants with the index on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _churn_mirror("cuda")
+    _storm_uploads("cuda")
+
+
+def _wrapper_bad(what):
+    p = torch.rand((2, 64))
+    q = torch.rand((5, 64))
+    return {"device": (p, q.to("meta")),
+            "dtype": (p.double(), q),
+            "rank": (p[0], q),
+            "buckets": (torch.rand((2, 32)), q),
+            "too many buckets": (torch.rand((2, 1025)), torch.rand((5, 1025))),
+            "no buckets": (torch.rand((2, 0)), torch.rand((5, 0))),
+            "strided": (p, torch.rand((64, 5)).T)}[what]
+
+
+@pytest.mark.parametrize("what,err", [
+    ("device", ValueError), ("dtype", TypeError), ("rank", ValueError),
+    ("buckets", ValueError), ("too many buckets", ValueError),
+    ("no buckets", ValueError), ("strided", ValueError)])
+def test_pairwise_js_wrapper_checks(what, err):
+    """The checks the wrapper runs before a launch (on a CUDA tensor; here
+    called directly, since a CPU tensor takes the plain version)."""
+    from repro_torch.kernels import pairwise_js as pj_mod
+    with pytest.raises(err):
+        pj_mod._check(*_wrapper_bad(what))
+    pj_mod._check(torch.rand((2, 64)), torch.rand((5, 64)))
+
+
+def test_pairwise_js_rejects_unknown_device():
+    meta = torch.empty((2, 64), device="meta")
+    with pytest.raises(ValueError, match="no pairwise_js for device meta"):
+        pairwise_js(meta, meta)
+
+
+# ---------------------------------------------------------------------------
 # state carried from the reference into the port
 # ---------------------------------------------------------------------------
 def _window(mod, det, grouper, jobs, ids, toks, now, subs):

@@ -263,11 +263,15 @@ def test_kernel_wrapper_checks_chunk_and_shared_memory():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(dtype):
     """The Hopper kernel against the plain version on the card, final
-    state included (needs a CUDA device and nvcc; chip_smoke.py runs the
-    sweep and xlstm-350m's prefill shape)."""
+    state included, on the sweep and at xlstm-350m's head width P = 512
+    over ragged short sequences at chunks of both tensor-core tiles (64;
+    96 and 128 take the 128-step tile) (needs a CUDA device and nvcc;
+    chip_smoke.py runs xlstm-350m's prefill shape)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for B, S, H, P, chunk in SWEEP:
+    for B, S, H, P, chunk in SWEEP + [(1, 80, 2, 512, 64),
+                                      (1, 200, 2, 512, 96),
+                                      (1, 300, 1, 512, 128)]:
         tin = _torch(_inputs(B, S, H, P, dtype), dtype, device="cuda")
         before = mlstm_scan.launches
         got, st = mlstm_scan(*tin, chunk=chunk, return_state=True)
