@@ -9,9 +9,9 @@ Phases, in order; the script exits non-zero at the first failure:
 2. Build every CUDA kernel of the port from this checkout (one nvcc per
    source, all started together) and print the build seconds and the
    compiler's register / spill report; then the SASS's tensor-core
-   instructions (HMMA) of flash_attention's and mlstm_scan's kernels,
-   required in their bf16 products and absent from their CUDA-core
-   kernels.
+   instructions (HMMA) of flash_attention's, mlstm_scan's and ssd_scan's
+   kernels, required in their bf16 products and absent from their
+   CUDA-core kernels.
 3. Hold each kernel against its plain PyTorch version on the card: for
    flash_attention the tests/test_kernels.py sweep plus the serving shapes
    of olmo-1b (bf16 prefill (1, 512, 16, 16, 128) causal; decode S=1 over
@@ -19,14 +19,19 @@ Phases, in order; the script exits non-zero at the first failure:
    (GQA 25/5 at head_dim 64: prefill (1, 1152) causal; decode over a
    strided prefix of a (4, 1184, 5, 64) cache); for ssd_scan the six
    cases of tests/test_kernels.py and hymba's prefill shape (1, 1152, 50,
-   64, N 16) at chunks 64 and 128, final state included; for mlstm_scan
+   64, N 16) at chunks 64 and 128, final state included, bf16 on the
+   tensor-core path and fp32 on the CUDA-core kernel (also against the
+   token-by-token oracle), then on tensor cores a ragged S, S shorter
+   than the chunk and batch 2; for mlstm_scan
    the six cases of tests/test_kernels.py, xlstm-350m's prefill shape (1,
    1024, 4, 512) bf16 at chunk 64 (output and final state), a ragged
    S = 1000 with the state also against the token-by-token oracle, and
    the full shape in fp32 against the oracle, and in bf16 the tensor-core
    path's 128-step tile at chunk 128 (S 1024) and chunk 96 (ragged S
    1000, state also against the oracle); for fleet_drift and
-   pairwise_js their CPU sweeps and the planes' full shapes. Tolerance
+   pairwise_js their CPU sweeps and the planes' full shapes (fleet_drift
+   also on uniform tokens over olmo's vocabulary, with modulo hashing at
+   64 and 48 buckets, and on the drift plane's bigram tokens). Tolerance
    fp32 2e-4, bf16 2e-2 (drift and JS 1e-5 / 1e-6 absolute).
 4. Serve olmo-1b, hymba-1.5b and xlstm-350m at full width through
    `repro_torch.launch.serve.main` (8 requests, 4 slots, 32 new tokens,
@@ -53,8 +58,11 @@ Phases, in order; the script exits non-zero at the first failure:
    serving shapes, with CUDA events after warm-up, rotating input buffers
    so that L2 does not hold them; print each beside the kernel's bound
    from its bytes and operations and the data-sheet peaks of the card
-   (mlstm_scan: on bf16 tensor cores, and on fp32 CUDA cores beside it).
-   Then the alternatives that `[sweep]` measures: flash_attention's plans.
+   (mlstm_scan and ssd_scan: on bf16 tensor cores, and on fp32 CUDA cores
+   beside it, with each of their kernels' device time). Then the
+   alternatives that `[sweep]` measures: flash_attention's plans,
+   fleet_drift's counting layouts under each bucket path, ssd_scan's heads
+   per output block.
 8. One `{"kernels": [...]}` JSON line, the nvidia-smi line again, and as
    the last line `{"ok": true, "device": {...}}`.
 
@@ -114,7 +122,9 @@ from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
                                      split_attention_ref, ssd_chunked,
                                      ssd_recurrent)
 from repro_torch.kernels.ssd_scan import SOURCE as SSD_SOURCE  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    CUDA_CORE as SSD_CUDA_CORE, TENSOR_CORE as SSD_TENSOR_CORE, ssd_scan,
+    plan as ssd_plan)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -177,6 +187,10 @@ FA_KERNELS = {"cuda_core": ("attn_fwd_kernel",),
 ML_TC_KERNELS = ("mlstm_gate_kernel", "mlstm_qk_kernel", "mlstm_state_kernel",
                  "mlstm_out_kernel")
 ML_CC_KERNELS = ("mlstm_scan_kernel",)
+# ssd_scan's: the bf16 tensor-core path's three launches, the CUDA-core
+# kernel
+SSD_TC_KERNELS = ("ssd_state_kernel", "ssd_walk_kernel", "ssd_out_kernel")
+SSD_CC_KERNELS = ("ssd_scan_kernel",)
 # kernels that no single PyTorch call computes: their library time is null
 NO_LIBRARY_CALL = ("fleet_drift", "pairwise_js", "ssd_scan", "mlstm_scan")
 
@@ -433,12 +447,13 @@ def _sass_by_kind(source, kinds):
 
 
 def tensor_core_report():
-    """The built flash_attention and mlstm_scan libraries' SASS: tensor-core
-    (HMMA) and fp32 FMA (FFMA) instruction counts of each kernel, which
-    must show HMMA in flash_attention's prefill and split-decode kernels
-    and in mlstm_scan's bf16 products (q k^T, the state walk, the output),
-    and none in either CUDA-core kernel; then flash_attention's registers
-    and shared memory as the card reports them."""
+    """The built flash_attention, mlstm_scan and ssd_scan libraries' SASS:
+    tensor-core (HMMA) and fp32 FMA (FFMA) instruction counts of each
+    kernel, which must show HMMA in flash_attention's prefill and
+    split-decode kernels, in mlstm_scan's bf16 products (q k^T, the state
+    walk, the output) and in ssd_scan's (the chunk states, the output),
+    and none in the three CUDA-core kernels; then flash_attention's
+    registers and shared memory as the card reports them."""
     hmma = _sass_by_kind(FA_SOURCE, ("attn_prefill_kernel",
                                      "attn_decode_split_kernel",
                                      "attn_decode_combine_kernel",
@@ -451,6 +466,11 @@ def tensor_core_report():
         assert ml.get(kind, 0) > 0, ml
     assert ml.get("mlstm_scan_kernel", 1) == 0, ml
     hmma.update(ml)
+    ssd = _sass_by_kind(SSD_SOURCE, SSD_TC_KERNELS + SSD_CC_KERNELS)
+    for kind in ("ssd_state_kernel", "ssd_out_kernel"):
+        assert ssd.get(kind, 0) > 0, ssd
+    assert ssd.get("ssd_scan_kernel", 1) == 0, ssd
+    hmma.update(ssd)
     for kernel in ("prefill", "prefill_2_groups", "split_decode", "combine",
                    "cuda_core"):
         for hdp in ((32, 64, 128) if kernel != "combine" else (128,)):
@@ -475,42 +495,65 @@ def _ssd_inputs(B, S, H, P, N, dtype, gen):
     return x, dt, A, Bm, Cm, D
 
 
+def _ssd_case(name, args, chunk, path, oracle=False):
+    """One ssd_scan case on the path `plan` must pick, output and final
+    state held to `ssd_chunked` (and with `oracle` also to the
+    token-by-token `ssd_recurrent`); returns the largest error."""
+    x, Bm, Cm = args[0], args[3], args[4]
+    Q = min(chunk, x.shape[1])
+    assert ssd_plan(x, Bm, Cm, Q) == path, (name, path)
+    tag = "tensor_core" if path == SSD_TENSOR_CORE else "cuda_core"
+    tol = TOL[x.dtype]
+    y, st = ssd_scan(*args, chunk=chunk, return_state=True)
+    wy, wst = ssd_chunked(*args, chunk=chunk, return_state=True)
+    errs = [_check(f"{name} [{tag}] y", y, wy, tol),
+            _check(f"{name} [{tag}] state", st, wst, tol)]
+    if oracle:
+        ry, rst = ssd_recurrent(*args, return_state=True)
+        errs += [_check(f"{name} [{tag}] y vs token-by-token oracle", y, ry,
+                        tol),
+                 _check(f"{name} [{tag}] state vs oracle", st, rst, tol)]
+    return max(errs)
+
+
 def check_ssd():
     """ssd_scan against its plain version `ssd_chunked`, output and final
-    state: the six cases of tests/test_kernels.py::test_ssd_kernel_sweep,
-    then hymba's prefill shape at apply_mamba's chunk (64) and the Pallas
-    kernel's default (128). At hymba's shape in fp32 also against the
-    token-by-token oracle. Returns the largest error at hymba's shape and
-    chunk, bf16."""
+    state: the six cases of tests/test_kernels.py::test_ssd_kernel_sweep
+    (bf16 on the tensor-core path, fp32 on the CUDA-core kernel), then
+    hymba's prefill shape at apply_mamba's chunk (64) and the Pallas
+    kernel's default (128), bf16 on tensor cores and fp32 on the CUDA-core
+    kernel, fp32 also against the token-by-token oracle; then on tensor
+    cores a ragged S (1000 at chunk 64, 1070 at chunk 128), S shorter than
+    the chunk (40 at 64), batch 2 and an odd head count (25: the output
+    kernel's last pair of heads has one) at hymba's width, states
+    included.
+    Returns the largest error at hymba's shape and chunk, bf16."""
     gen = torch.Generator(device=DEV).manual_seed(4)
+    TC, CC = SSD_TENSOR_CORE, SSD_CUDA_CORE
     for dtype in (torch.float32, torch.bfloat16):
+        path = TC if dtype == torch.bfloat16 else CC
         for B, S, H, P, N, chunk in [(1, 64, 2, 32, 16, 16),
                                      (2, 80, 1, 64, 8, 32),
                                      (1, 32, 4, 16, 32, 32)]:
-            args = _ssd_inputs(B, S, H, P, N, dtype, gen)
-            y, st = ssd_scan(*args, chunk=chunk, return_state=True)
-            wy, wst = ssd_chunked(*args, chunk=chunk, return_state=True)
-            name = (f"ssd_scan sweep {str(dtype)[6:]} B{B} S{S} H{H} P{P} "
-                    f"N{N} chunk{chunk}")
-            _check(f"{name} y", y, wy, TOL[dtype])
-            _check(f"{name} state", st, wst, TOL[dtype])
+            _ssd_case(f"ssd_scan sweep {str(dtype)[6:]} B{B} S{S} H{H} P{P} "
+                      f"N{N} chunk{chunk}",
+                      _ssd_inputs(B, S, H, P, N, dtype, gen), chunk, path)
     shape = (1, HY_S, 50, 64, 16)
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
+        path = TC if dtype == torch.bfloat16 else CC
         args = _ssd_inputs(*shape, dtype, gen)
         for chunk in (SSD_CHUNK, 128):
-            y, st = ssd_scan(*args, chunk=chunk, return_state=True)
-            wy, wst = ssd_chunked(*args, chunk=chunk, return_state=True)
-            name = f"ssd_scan hymba {str(dtype)[6:]} {shape} chunk{chunk}"
-            errs[dtype, chunk] = max(_check(f"{name} y", y, wy, TOL[dtype]),
-                                     _check(f"{name} state", st, wst,
-                                            TOL[dtype]))
-        if dtype == torch.float32:
-            ry, rst = ssd_recurrent(*args, return_state=True)
-            _check(f"ssd_scan hymba fp32 {shape} chunk{SSD_CHUNK} y vs "
-                   f"token-by-token oracle", y, ry, TOL[dtype])
-            _check(f"ssd_scan hymba fp32 {shape} state vs oracle", st, rst,
-                   TOL[dtype])
+            errs[dtype, chunk] = _ssd_case(
+                f"ssd_scan hymba {str(dtype)[6:]} {shape} chunk{chunk}",
+                args, chunk, path,
+                oracle=dtype == torch.float32 and chunk == SSD_CHUNK)
+    for B, S, H, chunk in ((1, 1000, 50, SSD_CHUNK), (1, 1070, 50, 128),
+                           (1, 40, 50, SSD_CHUNK), (2, HY_S, 50, SSD_CHUNK),
+                           (1, HY_S, 25, SSD_CHUNK)):
+        _ssd_case(f"ssd_scan bf16 B{B} S{S} H{H} P64 N16 chunk{chunk}",
+                  _ssd_inputs(B, S, H, 64, 16, torch.bfloat16, gen), chunk,
+                  TC)
     return errs[torch.bfloat16, SSD_CHUNK]
 
 
@@ -603,8 +646,9 @@ def _check_drift(name, toks, ref, buckets, vocab):
 def check_fleet_drift():
     """The CPU test sweep (tests/test_fleet_drift.py: tokens up to and
     including vocab, a zero-sum reference row), its edges, then the drift
-    plane's full shape and uniform tokens over olmo-1b's vocabulary and
-    with modulo hashing. Tolerance: scores 1e-5, hists 1e-6 absolute."""
+    plane's full shape and uniform tokens over olmo-1b's vocabulary, with
+    modulo hashing and over every int32 at vocab 2^31 - 1 (the 64-bit
+    division). Tolerance: scores 1e-5, hists 1e-6 absolute."""
     rng = np.random.default_rng(0)
     errs = []
 
@@ -636,6 +680,17 @@ def check_fleet_drift():
         rng.integers(0, OLMO_VOCAB, size=full), ref, BUCKETS, OLMO_VOCAB)
     run(f"fleet_drift full shape {full} uniform tokens, vocab 0",
         rng.integers(0, OLMO_VOCAB, size=full), ref, BUCKETS, 0)
+    run(f"fleet_drift full shape {full} uniform tokens, vocab 0, 48 "
+        f"buckets (reciprocal modulo)",
+        rng.integers(-OLMO_VOCAB, OLMO_VOCAB, size=full),
+        rng.random((DRIFT_N, 48)), 48, 0)
+    run(f"fleet_drift full shape {full} uniform int32 tokens, vocab 2^31 - 1 "
+        f"(64-bit division)",
+        rng.integers(-2 ** 31, 2 ** 31, size=full), ref, BUCKETS,
+        2 ** 31 - 1)
+    _, wins = drift_fleet(n_windows=1)
+    run(f"fleet_drift full shape {full} the drift plane's bigram tokens",
+        wins[1], ref, BUCKETS, DRIFT_VOCAB)
     return max(errs)
 
 
@@ -815,7 +870,7 @@ def profile_serving(arch):
         for e in top[:6]:
             print(f"[profile]   {e.device_time_total / 1e3 / n:8.3f} ms "
                   f"x{e.count // n:<4} {e.key[:90]}")
-        for kname, parts in (("ssd_scan", ("ssd_scan_kernel",)),
+        for kname, parts in (("ssd_scan", SSD_TC_KERNELS + SSD_CC_KERNELS),
                              ("mlstm_scan", ML_TC_KERNELS + ML_CC_KERNELS)):
             ev = [e for e in pr.key_averages()
                   if any(k in e.key for k in parts)]
@@ -909,13 +964,13 @@ def compare_logits(arch, dtype=torch.bfloat16):
 # ---------------------------------------------------------------------------
 # phase 6: the drift plane at fleet scale
 # ---------------------------------------------------------------------------
-def drift_fleet(seed=0):
+def drift_fleet(seed=0, n_windows=DRIFT_WINDOWS):
     """DRIFT_N streams in make_fleet's layout (vocab 64, 6 domains of dim
     4) over DRIFT_REGIONS regions, half of which switch domain at SWITCH_T.
     Each region's window is one vectorised DomainBank.sample call (a
     per-stream loop would take longer than the kernel work). Returns
-    (ids, [reference window, window 1, ...]) with (N, DRIFT_T) int64
-    token arrays."""
+    (ids, [reference window, window 1, ... window n_windows]) with
+    (N, DRIFT_T) int64 token arrays."""
     bank = DomainBank(DRIFT_VOCAB, 6, dim=4, seed=seed)
     rng = np.random.default_rng(seed + 1)
     sizes = [DRIFT_N // DRIFT_REGIONS + (r < DRIFT_N % DRIFT_REGIONS)
@@ -930,7 +985,7 @@ def drift_fleet(seed=0):
     ids = [f"cam{r}_{s}" for r, n in enumerate(sizes) for s in range(n)]
     seqs = DRIFT_T // 32
     wins = []
-    for w in range(DRIFT_WINDOWS + 1):
+    for w in range(n_windows + 1):
         wins.append(np.concatenate([
             bank.sample(reg.domain_at(10.0 * w), rng, n * seqs, 32).reshape(
                 n, DRIFT_T) for reg, n in zip(regions, sizes)]))
@@ -1261,51 +1316,69 @@ def _time_ms(fn, sets, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, sets, kernels=None, iters=20):
+def _device_ms(fn, sets, kernels=None, iters=20, bound_ms=None):
     """Mean device time (ms) of one call of `fn` under torch.profiler (CUDA
     activity only) over `iters` calls: for each CUDA kernel whose name
     holds one of `kernels` (a name or a tuple of names; every kernel the
     calls launched when None), the mean time of its launches, summed over
-    the kernels, each of which a call launches once (a session that kept
-    none of them is run again, up to three times). That is the device
+    the kernels, each of which a call launches once. That is the device
     work alone, without the host's time to launch it, which CUDA events
-    around a short call measure instead. The profiler on the card may drop
-    some launches' records; each mean is over those it kept, and the count
-    is printed when it kept fewer than `iters`."""
-    from torch.profiler import ProfilerActivity, profile
+    around a short call measure instead.
+
+    The profiler on the card has dropped the first launches' records of a
+    session, and has read less time than the card could take; so a session
+    records only after a warm-up step, and is kept only when it holds every
+    launch of each kernel and its sum is not under `bound_ms` (the least
+    time the card could take for the call's work, where given). A
+    session that is not kept is profiled again, up to three times; after
+    that the device time is `_time_ms`'s mean of 50 calls back to back
+    between two CUDA events: the device's time with any gaps between the
+    calls (an upper bound), printed as such."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     if isinstance(kernels, str):
         kernels = (kernels,)
     for i in range(3):
         fn(*sets[i % len(sets)])
     torch.cuda.synchronize()
-    for _ in range(3):      # a session on the card may keep no record
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(*sets[i % len(sets)])
-            torch.cuda.synchronize()
+    for _ in range(3):
+        # a warm-up step of `iters` calls that the profiler drops, then the
+        # step it records
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for step in range(2):
+                if step:
+                    prof.step()
+                for i in range(iters):
+                    fn(*sets[i % len(sets)])
+                torch.cuda.synchronize()
         evs = [e for e in prof.key_averages() if e.device_time_total > 0]
-        if all(any(n in e.key for e in evs) for n in kernels or ("",)):
+        names = kernels or tuple(e.key for e in evs)
+        total, parts, why = 0.0, [], None
+        for name in names:
+            mine = [e for e in evs if name in e.key]
+            count = sum(e.count for e in mine)
+            if count != iters:
+                why = f"{count} of {iters} launches of {name[:60]}"
+                break
+            part = sum(e.device_time_total for e in mine) / count / 1e3
+            parts.append(f"{name[:40]} {part:.4f}")
+            total += part
+        if why is None and not names:
+            why = "no kernel"
+        if why is None and bound_ms is not None and total < bound_ms:
+            why = f"{total:.4f} ms, under the {bound_ms:.4f} ms bound"
+        if why is None:
             break
-        print(f"[time] a profiler session kept no launch of "
-              f"{kernels or 'any kernel'}; profiling again")
-    names = kernels or tuple(e.key for e in evs)
+        print(f"[time] a profiler session kept {why}; profiling again")
+    else:
+        ms = _time_ms(fn, sets)
+        print(f"[time] no profiler session kept; device time from CUDA "
+              f"events around 50 calls back to back: {ms:.4f} ms")
+        return ms
     if kernels is None:
         print(f"[time]   library kernels: "
               f"{[(e.key[:60], e.count) for e in evs]}")
-    total, parts = 0.0, []
-    for name in names:
-        mine = [e for e in evs if name in e.key]
-        count = sum(e.count for e in mine)
-        if not 0 < count <= iters:
-            raise AssertionError(f"profiler saw {count} launches of {name} "
-                                 f"in {iters} calls")
-        if count < iters:
-            print(f"[time] the profiler kept {count} of {iters} launches of "
-                  f"{name[:60]}")
-        part = sum(e.device_time_total for e in mine) / count / 1e3
-        parts.append(f"{name[:40]} {part:.4f}")
-        total += part
-    if kernels is not None and len(names) > 1:
+    elif len(names) > 1:
         print(f"[time]   device ms per kernel: {'; '.join(parts)}")
     return total
 
@@ -1332,14 +1405,16 @@ def _attention_row(shape, sets, sdpa_sets, prefill, nbytes, flops, dtype,
     def lib(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, is_causal=prefill)
 
+    bound = _bound(nbytes, flops, dtype, pk)
     return dict(
         shape=f"{shape} [{path}]", path=path,
         ms=_time_ms(kern, sets),
-        device_ms=_device_ms(kern, sets, FA_KERNELS[path]),
+        device_ms=_device_ms(kern, sets, FA_KERNELS[path],
+                             bound_ms=bound[0]),
         plain_ms=_time_ms(attention_ref, sets),
         library_ms=_time_ms(lib, sdpa_sets),
-        library_device_ms=_device_ms(lib, sdpa_sets),
-        bound=_bound(nbytes, flops, dtype, pk))
+        library_device_ms=_device_ms(lib, sdpa_sets, bound_ms=bound[0]),
+        bound=bound)
 
 
 def time_attention(pk):
@@ -1433,24 +1508,35 @@ def sweep_attention_plans():
             print(f"[sweep] {tag}: {ms:.4f} ms on the device{mark}")
 
 
-def time_ssd(pk):
-    """ssd_scan at hymba's prefill shape, bf16, apply_mamba's chunk, final
-    state out, rotating 10 input sets (77 MB of x, past L2). Bytes: x, dt,
-    B, C, A, D read once, y and the state written once. Operations, the
-    least this function needs: per chunk of Q steps C_i . B_j over the
-    causal triangle T = Q (Q + 1) / 2 once (the heads share B and C), and
-    per head W x over the triangle, C . state and the state update (Q N P
+def ssd_cost(B, S, H, P, N, Q):
+    """(bytes, operations) the SSD scan must move and do at these shapes in
+    bf16 with the state out: x, dt, B, C, A, D read once, y and the fp32
+    state written once; per chunk of Q steps C_i . B_j over the causal
+    triangle T = Q (Q + 1) / 2 once (the heads share B and C), and per head
+    W x over the triangle, C . state and the state update (Q N P
     multiply-adds each): 2 nc (T N + H (T P + 2 Q N P)), an exponential
     counted as nothing."""
+    nc, T = -(-S // Q), Q * (Q + 1) // 2
+    nbytes = (2 * B * S * H * P * 2 + 4 * B * S * H + 2 * B * S * N * 2
+              + 8 * H + 4 * B * H * P * N)
+    return nbytes, 2 * B * nc * (T * N + H * (T * P + 2 * Q * N * P))
+
+
+def time_ssd(pk):
+    """ssd_scan at hymba's prefill shape, bf16, apply_mamba's chunk, final
+    state out, rotating 10 input sets (77 MB of x, past L2); the device
+    time sums the tensor-core path's three kernels, each printed. Bounds
+    from `ssd_cost` by the units the kernel uses: its products on bf16
+    tensor cores (the share), and beside it the fp32 CUDA-core bound that
+    the CUDA-core kernel is held to."""
     bf16 = torch.bfloat16
     gen = torch.Generator(device=DEV).manual_seed(7)
     B, S, H, P, N = 1, HY_S, 50, 64, 16
     Q = SSD_CHUNK
     sets = [_ssd_inputs(B, S, H, P, N, bf16, gen) for _ in range(10)]
-    nc, T = -(-S // Q), Q * (Q + 1) // 2
-    nbytes = (2 * B * S * H * P * 2 + 4 * B * S * H + 2 * B * S * N * 2
-              + 8 * H + 4 * B * H * P * N)
-    flops = 2 * B * nc * (T * N + H * (T * P + 2 * Q * N * P))
+    assert ssd_plan(sets[0][0], sets[0][3], sets[0][4], Q) == SSD_TENSOR_CORE
+    nbytes, flops = ssd_cost(B, S, H, P, N, Q)
+    bound = _bound(nbytes, flops, bf16, pk)
 
     def kern(*a):
         return ssd_scan(*a, chunk=Q, return_state=True)
@@ -1460,10 +1546,18 @@ def time_ssd(pk):
 
     r = dict(shape=f"x ({B},{S},{H},{P}) bf16, N {N}, chunk {Q}, state out",
              ms=_time_ms(kern, sets),
-             device_ms=_device_ms(kern, sets, "ssd_scan_kernel"),
+             device_ms=_device_ms(kern, sets, SSD_TC_KERNELS,
+                                  bound_ms=bound[0]),
              plain_ms=_time_ms(plain, sets, iters=10),
              library_ms=None,
-             bound=_bound(nbytes, flops, torch.float32, pk))
+             bound=bound,
+             bound_cuda_core=_bound(nbytes, flops, torch.float32, pk))
+    bcc, bycc = r["bound_cuda_core"]
+    print(f"[time] ssd_scan least work: {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e6:.1f} MFLOP; bound on bf16 tensor cores "
+          f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), on fp32 CUDA cores "
+          f"{bcc:.4f} ms ({bycc}, kernel at {100 * bcc / r['device_ms']:.1f}% "
+          f"of it)")
     _print_time("ssd_scan", r)
     return r
 
@@ -1477,6 +1571,8 @@ def time_fleet_drift(pk, windows, refs):
     N, T = windows[0].shape
     B = refs.shape[1]
     sets = [(w, refs) for w in windows]
+    bound = _bound(4 * N * T + 8 * N * B + 4 * N, N * T + 12 * N * B,
+                   torch.float32, pk)
 
     def kern(t, r):
         return fleet_drift(t, r, buckets=B, vocab=DRIFT_VOCAB)
@@ -1487,11 +1583,11 @@ def time_fleet_drift(pk, windows, refs):
     r = dict(shape=f"tokens ({N},{T}) int32, ref ({N},{B}) fp32, vocab "
                    f"{DRIFT_VOCAB}",
              ms=_time_ms(kern, sets),
-             device_ms=_device_ms(kern, sets, "fleet_drift_kernel"),
+             device_ms=_device_ms(kern, sets, "fleet_drift_kernel",
+                                  bound_ms=bound[0]),
              plain_ms=_time_ms(plain, sets, iters=10),
              library_ms=None,
-             bound=_bound(4 * N * T + 8 * N * B + 4 * N,
-                          N * T + 12 * N * B, torch.float32, pk))
+             bound=bound)
     _print_time("fleet_drift", r)
     return r
 
@@ -1512,14 +1608,16 @@ def time_pairwise_js(pk, cap):
         sets = [(torch.rand((N, BUCKETS), generator=gen, device=DEV), q)
                 for q in q_sets]
         M, B = cap, BUCKETS
+        bound = _bound(4 * (N * B + M * B + N * M), 5 * N * M * B,
+                       torch.float32, pk)
         rows[N] = dict(
             shape=f"p ({N},{B}), q ({M},{B}) fp32",
             ms=_time_ms(pairwise_js, sets),
-            device_ms=_device_ms(pairwise_js, sets, "pairwise_js_kernel"),
+            device_ms=_device_ms(pairwise_js, sets, "pairwise_js_kernel",
+                                 bound_ms=bound[0]),
             plain_ms=_time_ms(pairwise_js_ref, sets, iters=10),
             library_ms=None,
-            bound=_bound(4 * (N * B + M * B + N * M), 5 * N * M * B,
-                         torch.float32, pk))
+            bound=bound)
         _print_time("pairwise_js", rows[N])
     return rows
 
@@ -1554,6 +1652,7 @@ def time_mlstm(pk):
     sets = [_mlstm_inputs(B, S, H, P, bf16, gen) for _ in range(10)]
     assert ml_plan(*sets[0][:3], Q) == ML_TENSOR_CORE
     nbytes, flops = mlstm_cost(B, S, H, P, Q)
+    bound = _bound(nbytes, flops, bf16, pk)
 
     def kern(*a):
         return mlstm_scan(*a, chunk=Q, return_state=True)
@@ -1563,10 +1662,11 @@ def time_mlstm(pk):
 
     r = dict(shape=f"q,k,v ({B},{S},{H},{P}) bf16, chunk {Q}, state out",
              ms=_time_ms(kern, sets),
-             device_ms=_device_ms(kern, sets, ML_TC_KERNELS),
+             device_ms=_device_ms(kern, sets, ML_TC_KERNELS,
+                                  bound_ms=bound[0]),
              plain_ms=_time_ms(plain, sets, iters=10),
              library_ms=None,
-             bound=_bound(nbytes, flops, bf16, pk),
+             bound=bound,
              bound_cuda_core=_bound(nbytes, flops, torch.float32, pk))
     bcc, bycc = r["bound_cuda_core"]
     print(f"[time] mlstm_scan least work: {nbytes / 1e6:.2f} MB, "
@@ -1592,6 +1692,8 @@ def _print_time(name, r):
 
 def _timing_keys(r):
     bms, by = r["bound"]
+    # no time under the least the card could take (_device_ms keeps none)
+    assert r["device_ms"] >= bms and r["ms"] >= bms, r
     keys = {"ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": r["library_ms"]}
@@ -1695,8 +1797,9 @@ def main():
                     requests_32=pj[32]),
              storm_full_uploads=storm["full_uploads"],
              storm_rows_uploaded=storm["rows_uploaded"]),
-        _entry("ssd_scan", *src["ssd_scan"], launches["ssd_scan"],
-               err["ssd_scan"], ssd),
+        dict(_entry("ssd_scan", *src["ssd_scan"], launches["ssd_scan"],
+                    err["ssd_scan"], ssd),
+             bound_cuda_core_ms=ssd["bound_cuda_core"][0]),
         dict(_entry("mlstm_scan", *src["mlstm_scan"], launches["mlstm_scan"],
                     err["mlstm_scan"], ml),
              bound_cuda_core_ms=ml["bound_cuda_core"][0]),

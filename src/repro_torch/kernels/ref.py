@@ -259,6 +259,102 @@ def ssd_recurrent(x, dt, A, Bm, Cm, D, *, init_state=None,
     return (y, st) if return_state else y
 
 
+def _round_operand(x, how):
+    """An fp32 operand as a tensor-core product receives it: unchanged
+    (None), rounded once to bf16 ("bf16"), or as two bf16 halves hi =
+    bf16(x), lo = bf16(x - hi), each a product of its own ("split")."""
+    if how is None:
+        return x
+    hi = x.to(torch.bfloat16).to(F32)
+    if how == "bf16":
+        return hi
+    if how == "split":
+        return hi + (x - hi).to(torch.bfloat16).to(F32)
+    raise ValueError(f"unknown rounding {how!r}; use None, 'bf16' or "
+                     f"'split'")
+
+
+SSD_OPERANDS = ("W", "Bw", "state")
+
+
+def ssd_chunk_parallel(x, dt, A, Bm, Cm, D, *, chunk: int = 64,
+                       bf16_operands=None, return_state: bool = False):
+    """The chunkwise-parallel SSD of the `ssd_scan` kernel's bf16 path,
+    step by step in plain PyTorch: the tests' transcript of the kernel.
+
+    Same function as `ssd_chunked`, computed in the kernel's phases, each
+    (batch, head, chunk) on its own except the walk:
+      1. gates: cum, the in-chunk inclusive cumsum of dt A (dt = 0 past
+         the sequence end), seg_end = cum at the chunk's last step, the
+         chunk-end weights w_j = e^{seg_end - cum_j} dt_j;
+      2. the intra-chunk output y_intra = W x with W_ij = (C_i . B_j)
+         e^{cum_i - cum_j} dt_j (j <= i, masked before the exponential),
+         and the chunk's own end state S_c = (B o w)^T x, (P, N) per head;
+      3. the walk over the chunks, keeping each chunk's entry state:
+         state_c = e^{seg_end_c} state_{c-1} + S_c;
+      4. y = y_intra + e^{cum_i} (C_i . state_{c-1}) + D x.
+    `bf16_operands` maps the three fp32 operands of the kernel's
+    tensor-core products, "W" (of W x), "Bw" (B o w, of S_c) and "state"
+    (the entry state, of C . state), to how the kernel feeds them: "bf16"
+    (one rounding) or "split" (hi + lo bf16 halves); an operand it does
+    not name stays fp32. x, B and C enter exactly (bf16 inputs); sums and
+    everything else are fp32. Returns y (B,S,H,P) in x.dtype [, final
+    state (B,H,P,N) fp32].
+    """
+    how = dict(bf16_operands or {})
+    if set(how) - set(SSD_OPERANDS):
+        raise ValueError(f"unknown operands {sorted(set(how) - set(SSD_OPERANDS))}"
+                         f"; the kernel's are {SSD_OPERANDS}")
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    st = torch.zeros((Bsz, H, P, N), dtype=F32, device=x.device)
+    if S == 0:
+        y = torch.zeros_like(x)
+        return (y, st) if return_state else y
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    pd = torch.nn.functional.pad
+    xf, dtf, Bf, Cf = x.to(F32), dt.to(F32), Bm.to(F32), Cm.to(F32)
+    if pad:
+        xf = pd(xf, (0, 0, 0, 0, 0, pad))
+        dtf = pd(dtf, (0, 0, 0, pad))
+        Bf, Cf = pd(Bf, (0, 0, 0, pad)), pd(Cf, (0, 0, 0, pad))
+    n = xf.shape[1] // Q
+    xc = xf.reshape(Bsz, n, Q, H, P)
+    dtc = dtf.reshape(Bsz, n, Q, H)
+    Bc, Cc = Bf.reshape(Bsz, n, Q, N), Cf.reshape(Bsz, n, Q, N)
+
+    # phase 1: gates
+    cum = torch.cumsum(dtc * A.to(F32), dim=2)               # (B,n,Q,H)
+    seg_end = cum[:, :, -1, :]                               # (B,n,H)
+    w = torch.exp(seg_end[:, :, None, :] - cum) * dtc        # (B,n,Q,H)
+
+    # phase 2: intra-chunk output and the chunk's own end state
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,n,Q,Q,H)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    li = torch.where(mask[None, None, :, :, None], li, NEG_INF)
+    CB = torch.einsum("bcis,bcjs->bcij", Cc, Bc)             # (B,n,Q,Q)
+    W = CB[..., None] * torch.exp(li) * dtc[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhp->bcihp", _round_operand(W, how.get("W")),
+                     xc)
+    Bw = _round_operand(Bc[:, :, :, None, :] * w[..., None], how.get("Bw"))
+    local = torch.einsum("bcjhs,bcjhp->bchps", Bw, xc)       # (B,n,H,P,N)
+
+    # phase 3: the walk, keeping each chunk's entry state
+    prev = []
+    for c in range(n):
+        prev.append(st)
+        st = torch.exp(seg_end[:, c])[:, :, None, None] * st + local[:, c]
+    prev = _round_operand(torch.stack(prev, dim=1), how.get("state"))
+
+    # phase 4: outputs
+    y = y + torch.einsum("bcis,bchps->bcihp", Cc, prev) \
+        * torch.exp(cum)[..., None]
+    y = y + xc * D.to(F32)[None, None, None, :, None]
+    y = y.reshape(Bsz, n * Q, H, P)[:, :S].to(x.dtype)
+    return (y, st) if return_state else y
+
+
 # ---------------------------------------------------------------------------
 # mLSTM (xLSTM matrix memory): the chunked form and the token-by-token oracle
 # ---------------------------------------------------------------------------

@@ -295,12 +295,18 @@ def test_apply_mamba_step_matches_jax_in_place(mamba):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(dtype):
     """The Hopper kernel against the plain version on the card, final
-    state included (needs a CUDA device and nvcc; chip_smoke.py runs the
-    full sweep and hymba's prefill shape)."""
+    state included: bf16 on the tensor-core path, fp32 on the CUDA-core
+    kernel (needs a CUDA device and nvcc; chip_smoke.py runs the full sweep
+    and hymba's prefill shape)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for B, S, H, P, N, chunk in SWEEP:
+    # the sweep, then hymba's P 64 / N 16 at chunks 64 and 128 (a ragged S)
+    for B, S, H, P, N, chunk in SWEEP + [(1, 300, 3, 64, 16, 64),
+                                         (1, 300, 3, 64, 16, 128)]:
         tx = _torch(_inputs(B, S, H, P, N, dtype), dtype, device="cuda")
+        want_path = (ssd_mod.TENSOR_CORE if dtype == "bfloat16"
+                     else ssd_mod.CUDA_CORE)
+        assert ssd_mod.plan(tx[0], tx[3], tx[4], min(chunk, S)) == want_path
         before = ssd_scan.launches
         got, st = ssd_scan(*tx, chunk=chunk, return_state=True)
         assert ssd_scan.launches == before + 1
