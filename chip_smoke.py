@@ -17,7 +17,9 @@ Phases, in order; the script exits non-zero at the first failure:
    of olmo-1b (bf16 prefill (1, 512, 16, 16, 128) causal; decode S=1 over
    a strided prefix of a (4, 1024, 16, 128) bf16 cache) and of hymba-1.5b
    (GQA 25/5 at head_dim 64: prefill (1, 1152) causal; decode over a
-   strided prefix of a (4, 1184, 5, 64) cache); for ssd_scan the six
+   strided prefix of a (4, 1184, 5, 64) cache) and the training plane's
+   eval forward (64, 256, 16, 16, 128) causal in fp32 and bf16; for
+   ssd_scan the six
    cases of tests/test_kernels.py and hymba's prefill shape (1, 1152, 50,
    64, N 16) at chunks 64 and 128, final state included, bf16 on the
    tensor-core path and fp32 on the CUDA-core kernel (also against the
@@ -53,6 +55,27 @@ Phases, in order; the script exits non-zero at the first failure:
    through the grouper, each kernel path against its exact or plain path;
    the storm keeps the index's signature block on the card and counts its
    full-block and dirty-row uploads.
+6b. Train olmo-1b at full width through the training plane
+   (`repro_torch.core.trainer`, random weights from seeds 0 and 1, nothing
+   cut): two RetrainJobs in a capacity-2 JobBank (28.24 GB of fp32 state
+   on the card), batch 8 x 256, 4 steps a micro-window. One warm-up and
+   three timed micro-windows of `train_micro_many` (ms, tokens trained/s,
+   each step's loss and grad norm, all finite), one profiled (device
+   busy, idle share, kernels; no flash_attention launch: the train
+   forward takes the autograd route); peak device memory beside the
+   bank's bytes. eval_jobs at fp32 (the CUDA-core attention kernel) and
+   bf16 (the tensor-core prefill), 16 flash_attention launches a
+   forward, on eval rows whose tokens 1..64 are the plain route's own
+   greedy continuation; the logits of that call are kept and held to the
+   plain route's on the same rows: the largest difference within
+   GAP_LIMIT, every argmax flip where the plain top-1 leads by at most
+   twice it, at least half the generated positions hit on both routes.
+   Then job 0's micro-window twice in one call, on its row and on a twin
+   made from that row and rng, under
+   torch.use_deterministic_algorithms(True): the rows equal bit for bit.
+   Then one micro-window of hymba-1.5b and xlstm-350m at
+   smoke width on the card and on the CPU (the autograd route through
+   ssd_chunked / mlstm_chunked): losses finite and within 2e-2.
 7. Time each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls) at the
    serving shapes, with CUDA events after warm-up, rotating input buffers
@@ -60,11 +83,10 @@ Phases, in order; the script exits non-zero at the first failure:
    from its bytes and operations and the data-sheet peaks of the card
    (mlstm_scan and ssd_scan: on bf16 tensor cores, and on fp32 CUDA cores
    beside it, with each of their kernels' device time). Then the
-   alternatives that `[sweep]` measures: flash_attention's plans,
-   fleet_drift's counting layouts under each bucket path, ssd_scan's heads
-   per output block.
-8. One `{"kernels": [...]}` JSON line, the nvidia-smi line again, and as
-   the last line `{"ok": true, "device": {...}}`.
+   alternatives that `[sweep]` measures: flash_attention's plans.
+8. One `{"kernels": [...]}` JSON line (flash_attention's entry also
+   counts the training phase's eval launches), the nvidia-smi line again,
+   and as the last line `{"ok": true, "device": {...}}`.
 
 Every phase prints its seconds (`[phase]`).
 
@@ -87,6 +109,9 @@ import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
+# cuBLAS is deterministic only with a fixed workspace, set before CUDA
+# starts; the training phase's determinism check needs it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -96,12 +121,14 @@ if not torch.cuda.is_available():
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.core.drift import (FleetDriftDetector,  # noqa: E402
                                     batch_token_histogram,
                                     js_divergence_rows, token_histogram)
 from repro_torch.core.grouping import Grouper, Request  # noqa: E402
 from repro_torch.core.signature_index import SignatureIndex  # noqa: E402
+from repro_torch.core.trainer import (JobBank, RetrainJob,  # noqa: E402
+                                      SharedEngine)
 from repro_torch.data.scenarios import build_scenario  # noqa: E402
 from repro_torch.data.streams import DomainBank, Region  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -128,7 +155,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.models.param import tree_map  # noqa: E402
+from repro_torch.models.param import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.transformer import layer_plan  # noqa: E402
 from repro_torch.models.xlstm import slstm_scan  # noqa: E402
 
@@ -205,6 +232,17 @@ OLMO_VOCAB = 50_304
 DRIFT_SCORE_TOL, DRIFT_HIST_TOL, PJS_TOL = 1e-5, 1e-6, 1e-5
 # grouping plane: flash_crowd_10k's join storm through the shortlist
 JOINERS, SHORTLIST_K = 10_000, 2
+# training plane: olmo-1b at full width, two jobs in a capacity-2 bank
+# (the reference's first capacity of 4 would hold 56.5 GB of fp32 state),
+# pools of 64 rows x 256 tokens, batch 8, 4 steps a micro-window
+TRAIN_JOBS, TRAIN_ROWS, TRAIN_SEQ = 2, 64, 256
+TRAIN_BATCH, TRAIN_MICRO, TRAIN_WINDOWS = 8, 4, 3
+# eval rows: tokens 1..TRAIN_GEN generated greedily by the plain route;
+# the largest eval logit difference, kernel vs plain route, allowed per
+# precision (readings 7.2e-6 fp32, 6.25e-2 bf16 = one bf16 step at
+# |logit| 8..16, on an H100 80GB HBM3 at 700 W; PERF.md)
+TRAIN_GEN = 64
+GAP_LIMIT = {"fp32": 1e-4, "bf16": 0.25}
 
 
 def nvidia_smi() -> str:
@@ -289,8 +327,9 @@ def check_attention():
     blocks or more, one; split-KV decode over strided cache views with
     ragged last splits, splits of several tiles, and S = 4 appended
     queries with a window, so splits before the first visible key), then
-    the serving shapes. Returns the largest error at the serving shapes,
-    bf16."""
+    the serving shapes and the training plane's eval shapes (fp32 on the
+    CUDA-core kernel, bf16 on the tensor-core prefill). Returns the
+    largest error at those shapes."""
     gen = torch.Generator(device=DEV).manual_seed(0)
     sweep = [(1, 128, 128, 4, 4, 64), (2, 64, 64, 4, 2, 32),
              (1, 96, 96, 8, 1, 64), (1, 32, 128, 4, 2, 64)]
@@ -386,6 +425,14 @@ def check_attention():
     serving.append(_attn_case(
         f"hymba decode q (4,1,25,64) over bf16 cache prefix "
         f"(4,{HY_DECODE_T}/{HY_CAP},5,64)", q, kp, vp, "split_decode"))
+    # the training plane's evals: one job's 8 members of 8 rows flattened
+    # into one forward, olmo-1b's 16 heads at head_dim 128
+    for dtype, path in ((torch.float32, "cuda_core"), (bf16, "prefill")):
+        q, k, v = (_randn((8 * TRAIN_BATCH, TRAIN_SEQ, 16, 128), dtype, gen)
+                   for _ in range(3))
+        serving.append(_attn_case(
+            f"train-plane eval {str(dtype)[6:]} (64,{TRAIN_SEQ},16,16,128) "
+            f"causal", q, k, v, path))
     return max(serving)
 
 
@@ -1115,7 +1162,7 @@ def _unit(key: str) -> float:
 class DetJob:
     """A duck-typed retraining job whose accuracy on a request's samples
     is a fixed function of (job, samples): both runs of the storm see the
-    same accuracies (the port's trainer is not there yet)."""
+    same accuracies without training 10,000 models."""
 
     def __init__(self, req, counter):
         self.job_id = f"dj{counter[0]}"
@@ -1295,6 +1342,325 @@ def _explain_divergence(gk, gr, req):
               f"{g.events[-1]}; smallest job minima after it "
               f"{np.sort(jobmin)[:SHORTLIST_K + 2].tolist()}")
     raise AssertionError(f"grouping diverged at request {req.stream_id}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: train olmo-1b at full width through the training plane
+# ---------------------------------------------------------------------------
+def _bank_row(bank, idx):
+    """Slot `idx`'s state leaves, as views of the resident stack."""
+    return tree_leaves(bank.row_device(idx))
+
+
+def _row_paths(bank):
+    """Each leaf's path in the state tree, in `_bank_row`'s order."""
+    paths = []
+
+    def walk(t, pre):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, pre + (k,))
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                walk(v, pre + (i,))
+        else:
+            paths.append("/".join(map(str, pre)))
+    walk(bank.row_device(0), ())
+    return paths
+
+
+def _deterministic(fn, *args):
+    """fn(*args) under torch.use_deterministic_algorithms(True), which
+    raises on any op without a deterministic implementation."""
+    torch.use_deterministic_algorithms(True)
+    out = fn(*args)
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+def _micro_window(engine, jobs):
+    """One train_micro_many call between CUDA events: (ms, metrics)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    mets = engine.train_micro_many(jobs)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), mets
+
+
+def _job_params(engine, job, cd):
+    """The job's params as the evals read them: its row of the bank's
+    stack cast to compute dtype `cd`."""
+    return tree_map(lambda x: x[job._slot.idx],
+                    engine.bank.params_stack_compute(cd))
+
+
+def _greedy_rows(engine, job, precision, seed):
+    """(TRAIN_BATCH, TRAIN_SEQ) eval rows of uniform tokens whose tokens
+    1..TRAIN_GEN are the plain route's greedy continuation of token 0,
+    for the job's params at `precision`. The plain route's argmax hits at
+    those positions (up to rounding between forward shapes), so an eval
+    route that is wrong loses hits there. One forward per generated
+    token, over the prefix only: a causal model's position t sees tokens
+    0..t."""
+    cd = {"fp32": torch.float32, "bf16": torch.bfloat16}[precision]
+    rows = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, engine.cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ)), device=DEV)
+    params = _job_params(engine, job, cd)
+    with torch.no_grad():
+        for t in range(TRAIN_GEN):
+            logits, _ = engine.model.apply(params, rows[:, :t + 1],
+                                           compute_dtype=cd,
+                                           kernel_impl="ref")
+            rows[:, t + 1] = logits[:, t].float().argmax(-1)
+    return rows.cpu().numpy()
+
+
+def _eval_logits(engine, job, precision, impl):
+    """The (rows, S-1) fp32 logits of the member's rows in the forward
+    `batched_accuracy` runs for a one-member job (the member's rows padded
+    with zero rows to 8 members), through kernel route `impl`."""
+    subs = np.asarray(job.members[0].subsamples)
+    b = subs.shape[0]
+    tk = np.zeros((8 * b,) + subs.shape[1:], subs.dtype)
+    tk[:b] = subs
+    cd = {"fp32": torch.float32, "bf16": torch.bfloat16}[precision]
+    with torch.no_grad():
+        logits, _ = engine.model.apply(_job_params(engine, job, cd),
+                                       torch.as_tensor(tk, device=DEV),
+                                       compute_dtype=cd, kernel_impl=impl)
+    return logits[:b, :-1].float()
+
+
+def _kept_logits(apply, rows, keep):
+    """`apply` (a Model.apply) that also keeps, in `keep`, an fp32 copy of
+    the first `rows` rows of each call's logits at positions 0..S-2."""
+    def kept(*args, **kwargs):
+        out = apply(*args, **kwargs)
+        keep.append(out[0][:rows, :-1].to(torch.float32, copy=True))
+        return out
+    return kept
+
+
+def _compare_eval(job, acc, lk, lr, precision):
+    """One job's eval on the kernel route (`acc` from eval_jobs, `lk` the
+    logits that call computed) against the plain route's logits `lr` on
+    the same rows: the largest logit difference within GAP_LIMIT, every
+    argmax flip where the plain top-1 leads by at most twice it, and the
+    generated positions hit on both routes."""
+    labels = torch.as_tensor(np.asarray(job.members[0].subsamples)[:, 1:],
+                             device=DEV)
+    ak, ap = lk.argmax(-1), lr.argmax(-1)
+    hk, hp = int((ak == labels).sum()), int((ap == labels).sum())
+    gap = float((lk - lr).abs().max())
+    diff = ak != ap
+    top2 = lr[diff].topk(2, dim=-1).values
+    leads = (top2[:, 0] - top2[:, 1]).tolist()
+    acc_plain = float((ap == labels).float().mean())
+    print(f"[train]   {job.job_id} {precision}: accuracy {acc!r} kernel route"
+          f" (eval_jobs), {acc_plain!r} plain route; hits {hk} / {hp} of "
+          f"{labels.numel()} positions ({TRAIN_BATCH * TRAIN_GEN} "
+          f"generated); largest logit difference {gap:.3e} (limit "
+          f"{GAP_LIMIT[precision]:g}, max |plain| "
+          f"{float(lr.abs().max()):.3g}); {int(diff.sum())} argmax flips, "
+          f"plain top-1 leads {sorted(leads)[:8]}")
+    # the kept logits are the ones eval_jobs scored
+    assert float((ak == labels).float().mean()) == acc, acc
+    assert gap <= GAP_LIMIT[precision], (gap, precision)
+    assert all(x <= 2 * gap for x in leads), leads
+    floor = TRAIN_BATCH * TRAIN_GEN // 2
+    assert hk >= floor and hp >= floor, (hk, hp, floor)
+
+
+def train_full_width():
+    """olmo-1b at full width (16 layers, d_model 2048, vocabulary 50,304,
+    random weights from seeds 0 and 1) trained through the port's
+    training plane: two RetrainJobs of one SharedEngine (its default
+    TrainConfig: bf16 compute over fp32 masters, lr 1e-3, b2 0.999) in a
+    capacity-2 JobBank, each pool 64 rows of 256 uniform tokens, batch 8,
+    4 steps a micro-window. Timed micro-windows, one of them profiled;
+    eval_jobs at fp32 and bf16 through flash_attention (16 launches a
+    forward) on rows whose first tokens are the plain route's own greedy
+    continuation, against the plain route on the same rows; then the same
+    micro-window run twice, job 0 and a twin made from its row and rng,
+    under torch.use_deterministic_algorithms(True), the two rows equal
+    bit for bit. Returns the flash_attention launches of the evals."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config(ARCH)
+    engine = SharedEngine(cfg, device=DEV)
+    engine.bank = JobBank(engine, capacity=TRAIN_JOBS)
+    torch.cuda.reset_peak_memory_stats()
+    jobs, pools = [], []
+    for seed in range(TRAIN_JOBS):
+        rng = np.random.default_rng(seed)
+        pools.append(rng.integers(0, cfg.vocab_size,
+                                  size=(TRAIN_ROWS, TRAIN_SEQ)))
+        subs = rng.integers(0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ))
+        jobs.append(RetrainJob(
+            engine, Request(stream_id=f"cam{seed}", t=0.0, loc=(0.0, 0.0),
+                            subsamples=subs, acc=0.0, train_data=pools[-1]),
+            micro_steps=TRAIN_MICRO, batch=TRAIN_BATCH, seed=seed))
+    bank = engine.bank
+    n_params = engine.model.num_params()
+    reckoned = bank.capacity * bank.state_row_nbytes
+    print(f"[train] {ARCH}: {n_params:,} parameters; one job's state "
+          f"(params, mu, nu fp32 + count) {bank.state_row_nbytes / 1e9:.2f} "
+          f"GB; the bank's {bank.capacity} rows {reckoned / 1e9:.2f} GB on "
+          f"the card; host mirror "
+          f"{'not allocated' if bank._host is None else 'allocated'}")
+    assert bank.state_row_nbytes == 12 * n_params + 4, bank.state_row_nbytes
+    # the jobs' fresh states were written on the card: no host mirror
+    assert bank._host is None
+    alloc_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tokens = TRAIN_JOBS * TRAIN_MICRO * TRAIN_BATCH * TRAIN_SEQ
+    reset_launches()
+    ms, _ = _micro_window(engine, jobs)                  # warm-up
+    print(f"[train] warm-up micro-window {ms:.1f} ms")
+    window_ms = []
+    for w in range(TRAIN_WINDOWS):
+        ms, mets = _micro_window(engine, jobs)
+        window_ms.append(ms)
+        print(f"[train] micro-window {w}: {ms:.1f} ms, {tokens} tokens, "
+              f"{tokens / ms * 1e3:.0f} tokens trained/s (train_micro_many, "
+              f"{TRAIN_JOBS} jobs x {TRAIN_MICRO} steps x {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ})")
+        for job in jobs:
+            m = {k: mets[job.job_id][k].tolist() for k in ("loss",
+                                                           "grad_norm")}
+            print(f"[train]   {job.job_id}: loss "
+                  f"{[round(x, 5) for x in m['loss']]} grad norm "
+                  f"{[round(x, 5) for x in m['grad_norm']]}")
+            assert all(math.isfinite(x) for x in m["loss"] + m["grad_norm"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_micro_many(jobs)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, kernels = _device_busy_ms(prof)
+    attn = [e.key for e in prof.key_averages() if "attn_" in e.key]
+    mean_ms = sum(window_ms) / len(window_ms)
+    print(f"[train] profiled micro-window: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms, {kernels} kernels; idle share {1 - busy / wall:.3f}"
+          f" of the profiled wall (an upper bound: the profiler slows the "
+          f"host), {1 - busy / mean_ms:.3f} of the unprofiled windows' mean "
+          f"{mean_ms:.1f} ms")
+    top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    for e in top[:6]:
+        print(f"[train]   {e.device_time_total / 1e3:8.1f} ms x{e.count:<5} "
+              f"{e.key[:90]}")
+    launches = launch_counts()
+    assert launches["flash_attention"] == 0 and not attn, (launches, attn)
+    print(f"[train] flash_attention launches in training: "
+          f"{launches['flash_attention']} (the autograd route)")
+    train_peak = torch.cuda.max_memory_allocated()
+    print(f"[train] peak device memory {train_peak / 1e9:.2f} GB while "
+          f"training ({alloc_peak / 1e9:.2f} GB while the jobs were "
+          f"allocated, a fresh 14.12 GB state beside the bank) beside the "
+          f"bank's reckoned {reckoned / 1e9:.2f} GB")
+
+    # evals: flash_attention on every forward of eval_jobs, whose logits
+    # are kept and held to the plain route's on the same rows
+    forwards = len(jobs)        # one member a job: one forward a job
+    eval_launches = 0
+    for precision in ("fp32", "bf16"):
+        t0 = time.perf_counter()
+        for n, job in enumerate(jobs):
+            job.members[0].subsamples = _greedy_rows(engine, job, precision,
+                                                     100 + n)
+        t_gen = time.perf_counter() - t0
+        engine.eval_jobs(jobs, precision=precision)       # warm-up
+        torch.cuda.synchronize()
+        keep = []
+        engine.model.apply = _kept_logits(engine.model.apply, TRAIN_BATCH,
+                                          keep)
+        reset_launches()
+        t0 = time.perf_counter()
+        accs = engine.eval_jobs(jobs, precision=precision)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = flash_attention.launches
+        del engine.model.apply          # back to the class's method
+        want = cfg.num_layers * forwards
+        reset_launches()
+        t0 = time.perf_counter()
+        plain = [_eval_logits(engine, job, precision, "ref") for job in jobs]
+        torch.cuda.synchronize()
+        ms_plain = 1e3 * (time.perf_counter() - t0)
+        print(f"[train] eval_jobs {precision}: {ms:.1f} ms per call "
+              f"({forwards} forwards of ({8 * TRAIN_BATCH}, {TRAIN_SEQ}) "
+              f"rows), flash_attention launches {n} (expected {want}); the "
+              f"plain route's forwards {ms_plain:.1f} ms, launches "
+              f"{flash_attention.launches}; eval rows generated in "
+              f"{t_gen:.1f}s")
+        assert n == want and flash_attention.launches == 0, (n, want)
+        assert len(keep) == forwards, len(keep)
+        eval_launches += n
+        for job, acc, lk, lr in zip(jobs, accs, keep, plain):
+            _compare_eval(job, acc, lk, lr, precision)
+        del keep, plain
+
+    # determinism: job 0's micro-window twice, on its own row and on a
+    # twin made from that row, its pool and its rng, in one call under
+    # deterministic algorithms; the two rows must end equal bit for bit
+    t0 = time.perf_counter()
+    jobs.pop().release()
+    bank.compact()
+    job = jobs[0]
+    twin = RetrainJob(
+        engine, Request(stream_id="cam0-twin", t=0.0, loc=(0.0, 0.0),
+                        subsamples=job.members[0].subsamples, acc=0.0,
+                        train_data=pools[0]),
+        micro_steps=TRAIN_MICRO, batch=TRAIN_BATCH,
+        init_state_tree=bank.row_device(job._slot.idx))
+    twin.rng.bit_generator.state = job.rng.bit_generator.state
+    mets = _deterministic(engine.train_micro_many, [job, twin])
+    for path, a, b in zip(_row_paths(bank), _bank_row(bank, job._slot.idx),
+                          _bank_row(bank, twin._slot.idx)):
+        assert torch.equal(a, b), \
+            f"leaf {path} differs first between the two runs"
+    la, lb = mets[job.job_id]["loss"], mets[twin.job_id]["loss"]
+    assert torch.equal(la, lb) and la.numel() == TRAIN_MICRO, (la, lb)
+    assert bank._host is None           # no row crossed to the host
+    print(f"[train] the same micro-window twice (job 0 and its twin, "
+          f"deterministic algorithms on): rows equal bit for bit over "
+          f"{len(_row_paths(bank))} leaves, losses "
+          f"{[round(x, 5) for x in la.tolist()]}; "
+          f"{time.perf_counter() - t0:.1f}s; host mirror never allocated")
+    return eval_launches
+
+
+def train_smoke_families():
+    """hymba-1.5b and xlstm-350m at their smoke widths: one
+    train_micro_many on the card through the autograd route (ssd_chunked,
+    mlstm_chunked), and the same micro-window on the CPU from the same
+    state and seed; the step losses finite and within 2e-2."""
+    for arch in (HYMBA, XLSTM):
+        cfg = smoke_config(arch)
+        rng = np.random.default_rng(7)
+        data = rng.integers(0, cfg.vocab_size, size=(32, 64))
+        state = None
+        losses = []
+        for dev in (DEV, torch.device("cpu")):
+            eng = SharedEngine(cfg, device=dev)
+            if state is None:
+                state = eng.fresh_state(0)
+            job = RetrainJob(
+                eng, Request(stream_id="s", t=0.0, loc=(0.0, 0.0),
+                             subsamples=data[:8], acc=0.0, train_data=data),
+                micro_steps=TRAIN_MICRO, batch=TRAIN_BATCH, seed=0,
+                init_state_tree=tree_map(lambda x: x.to(dev), state))
+            losses.append(eng.train_micro_many([job])[
+                job.job_id]["loss"].cpu())
+        card, cpu = losses
+        diff = float((card - cpu).abs().max())
+        print(f"[train] {arch} smoke micro-window on the card: losses "
+              f"{[round(x, 5) for x in card.tolist()]}, on the CPU "
+              f"{[round(x, 5) for x in cpu.tolist()]}, max difference "
+              f"{diff:.2e}")
+        assert torch.isfinite(card).all() and diff <= 2e-2, diff
 
 
 # ---------------------------------------------------------------------------
@@ -1761,6 +2127,10 @@ def main():
     storm = phase("grouping storm", grouping_storm)
     launches["pairwise_js"] = storm["launches"]
     assert storm["capacity"] == cap, (storm["capacity"], cap)
+    torch.cuda.empty_cache()
+    train_eval = phase(f"train {ARCH}", train_full_width)
+    torch.cuda.empty_cache()
+    phase("train smoke families", train_smoke_families)
     att = phase("time flash_attention", time_attention, pk)
     phase("sweep flash_attention plans", sweep_attention_plans)
     fd = phase("time fleet_drift", time_fleet_drift, pk, windows, refs)
@@ -1789,6 +2159,7 @@ def main():
              combine_launches=launches["flash_attention_combine"],
              hymba_launches=hymba["flash_attention"],
              hymba_combine_launches=hymba["flash_attention_combine"],
+             train_eval_launches=train_eval,
              tensor_core_hmma=hmma),
         _entry("fleet_drift", *src["fleet_drift"], launches["fleet_drift"],
                err["fleet_drift"], fd),

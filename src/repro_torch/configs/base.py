@@ -1,5 +1,5 @@
-"""Model config dataclasses, a copy of the JAX package's `configs/base.py`
-(the model part only; shapes, training and mesh configs arrive with the
+"""Config dataclasses, a copy of the JAX package's `configs/base.py`: the
+model configs and `TrainConfig` (shapes and mesh configs arrive with the
 slices that use them).
 
 Every architecture the port serves gets a `ModelConfig` in its own module
@@ -123,3 +123,36 @@ class ModelConfig:
         full_experts = self.moe.num_experts * mult * d * self.moe.d_ff_expert
         active_experts = self.moe.top_k * mult * d * self.moe.d_ff_expert
         return self.param_count() - L * (full_experts - active_experts)
+
+
+# ---------------------------------------------------------------------------
+# Training configuration
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    remat: str = "full"          # none | dots | full
+    microbatches: int = 1        # gradient accumulation
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    compress_pod_grads: bool = False   # int8 cross-pod all-reduce
+    seed: int = 0
+
+
+def check_train_config(tcfg: TrainConfig):
+    """Raise NotImplementedError for a field the port's train step does not
+    have yet, rather than train without it."""
+    if tcfg.remat != "none":
+        raise NotImplementedError(
+            f"remat={tcfg.remat!r} not ported yet (ROADMAP.md queue 1 item "
+            f"10, launch/train.py); use remat='none'")
+    if tcfg.compress_pod_grads:
+        raise NotImplementedError(
+            "compress_pod_grads not ported yet (ROADMAP.md queue 1 item 9, "
+            "distribution)")

@@ -10,4 +10,6 @@ signature_index.py — dense fleet arrays answering "which jobs pass the
 grouping.py — Alg. 2 dynamic grouping (metadata prefilter + accuracy
     check; periodic eviction with EMA-smoothed reference).
 batching.py — the duck-typed probe for a batched training engine.
+trainer.py — the training plane: `TokenRingPool`, the stacked `JobBank`,
+    `SharedEngine` (batched evals and micro-windows) and `RetrainJob`.
 """

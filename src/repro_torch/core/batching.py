@@ -11,11 +11,11 @@ enabled. Callers fall back to the seed per-job loop on None; the
 batched and scalar paths must be bit-identical, so the probe only
 decides dispatch cost, never decisions.
 
-This port has no trainer yet (`core/trainer.py` is queued in
-ROADMAP.md): every job the grouping plane sees is duck-typed,
-`shared_engine` returns None, and the scalar `eval_on` path runs. The
-probe is copied whole so that the grouper's dispatch is the reference's
-line for line once the trainer lands.
+The port's `core/trainer.py` provides such an engine: a set of
+`RetrainJob`s of one batched `SharedEngine` passes the probe, and the
+grouper scores its candidates in one `eval_pairs` call. Duck-typed fakes,
+mixed engines and `batched=False` engines get None and the scalar
+`eval_on` path. The probe is the reference's line for line.
 
 Residency contract (docs/training_plane.md): dispatch sites never
 touch bank rows directly. A probe-positive engine guarantees that its

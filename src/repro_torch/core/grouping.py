@@ -21,7 +21,12 @@ requires that all membership mutations flow through this class (else
 call index.rebuild(jobs)).
 
 Jobs are duck-typed: .eval_on(samples) -> float, .add_member(req),
-.remove_member(stream_id), .members -> list[Request].
+.remove_member(stream_id), .members -> list[Request]. When every job
+scored in a call is a `RetrainJob` of one batched `SharedEngine`
+(`core/trainer.py`; `core/batching.shared_engine` decides), the accuracy
+checks of a request and the window-end member evals each run as one
+batched `eval_pairs` call, whose accuracies equal the scalar `eval_on`
+loop's.
 """
 from __future__ import annotations
 

@@ -27,7 +27,8 @@ mlstm_scan — the chunkwise stabilised mLSTM of xLSTM's matrix-memory
     memory), CUDA C++ in `csrc/mlstm_scan.cu`; replaces the Pallas TPU
     kernel of the same name.
 
-ops.py dispatches by the tensor's device ("auto") or to the plain version
+ops.py dispatches by the tensor's device ("auto"), to the differentiable
+plain forms the train step takes ("autograd"), or to the plain version
 ("ref"); ref.py holds the plain versions; _build.py compiles the CUDA
 sources with nvcc at first use and loads them with ctypes.
 """

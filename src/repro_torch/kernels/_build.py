@@ -5,7 +5,8 @@ library with a plain C interface and loaded with ctypes (no PyTorch
 headers, so a build takes seconds). Libraries go to `build/kernels/` at
 the repository root, named by a hash of the source and the flags, and are
 built at first use; concurrent builders write to a private file and
-rename it into place.
+rename it into place. `refuse_grad` is every wrapper's guard against a
+call under autograd.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -70,3 +73,14 @@ def load(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(source)))
         _LOADED[source] = lib
     return lib
+
+
+def refuse_grad(op: str, *tensors):
+    """Raise when grad mode is on and a floating input requires grad: the
+    kernels have no backward pass, so their output would carry no
+    `grad_fn` and silently cut the gradient. Checked on every device."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad and t.is_floating_point() for t in tensors):
+        raise ValueError(
+            f"{op}: the hand-written kernels have no backward; train "
+            f"through impl='autograd'")

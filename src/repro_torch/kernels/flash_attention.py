@@ -11,7 +11,9 @@ split-KV decode (a second launch combines the splits), or the CUDA-core
 kernel. `flash_attention(q, k, v)` launches it for CUDA tensors and raises
 on anything the kernels do not take. For CPU tensors it computes the
 plain version `ref.attention_ref` (the CPU tests' path); no CUDA call ever
-falls back to it. `flash_attention.launches` counts calls that launched
+falls back to it, and no call under autograd reaches either: with grad
+mode on and an input that requires grad the wrapper raises (the kernel
+has no backward). `flash_attention.launches` counts calls that launched
 the attention kernel, `flash_attention.combine_launches` the split-KV
 combine launches.
 """
@@ -151,6 +153,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     only their last dim must be contiguous. Returns (B, S, H, hd) in
     q.dtype. A row with no visible key is 0.
     """
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -13,8 +13,10 @@ everything else to the CUDA-core kernel.
 `mlstm_scan(q, k, v, igate, fgate)` launches the kernel for CUDA tensors
 and raises on anything the kernel does not take. For CPU tensors it
 computes the plain version `ref.mlstm_chunked` (the CPU tests' path); no
-CUDA call ever falls back to it. `mlstm_scan.launches` counts calls that
-launched the kernel (one per call, whichever path).
+CUDA call ever falls back to it, and no call under autograd reaches
+either: with grad mode on and an input that requires grad the wrapper
+raises (the kernel has no backward). `mlstm_scan.launches` counts calls
+that launched the kernel (one per call, whichever path).
 """
 from __future__ import annotations
 
@@ -142,6 +144,7 @@ def mlstm_scan(q, k, v, igate, fgate, *, chunk: int = 128,
     contiguous. Returns h (B,S,H,P) in q.dtype, and with `return_state`
     also the final state (C (B,H,P,P), n (B,H,P), m (B,H)) in fp32.
     """
+    _build.refuse_grad("mlstm_scan", q, k, v, igate, fgate)
     if q.device.type == "cpu":
         return mlstm_chunked(q, k, v, igate, fgate, chunk=chunk,
                              return_state=return_state)

@@ -13,7 +13,9 @@ kernel.
 `ssd_scan(x, dt, A, Bm, Cm, D)` launches the kernel for CUDA tensors and
 raises on anything the kernel does not take. For CPU tensors it computes
 the plain version `ref.ssd_chunked` (the CPU tests' path); no CUDA call
-ever falls back to it. `ssd_scan.launches` counts calls that launched the
+ever falls back to it, and no call under autograd reaches either: with
+grad mode on and an input that requires grad the wrapper raises (the
+kernel has no backward). `ssd_scan.launches` counts calls that launched the
 kernel (one per call, whichever path).
 """
 from __future__ import annotations
@@ -146,6 +148,7 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
     last dim must be contiguous. Returns y (B,S,H,P) in x.dtype, and with
     `return_state` also the final state (B,H,P,N) fp32.
     """
+    _build.refuse_grad("ssd_scan", x, dt, A, Bm, Cm, D)
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
                            return_state=return_state)

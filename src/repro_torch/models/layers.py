@@ -282,7 +282,11 @@ def embedding_spec(cfg: ModelConfig):
 
 
 def embed_tokens(p, tokens, dtype):
-    return p["table"].to(dtype)[tokens]
+    """The table's rows for `tokens`. `F.embedding` is the same gather as
+    indexing, but its backward on the card sums each row's gradients after
+    a sort (deterministic), where indexing's `index_put_(accumulate=True)`
+    adds them with atomics, whose order is the scheduler's."""
+    return F.embedding(tokens, p["table"].to(dtype))
 
 
 def unembed(cfg: ModelConfig, p, x):

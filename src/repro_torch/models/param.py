@@ -24,14 +24,16 @@ class Spec:
     scale: float = 1.0                # fan-in style scale multiplier
 
 
-def tree_map(fn: Callable, tree):
+def tree_map(fn: Callable, tree, *rest):
     """Apply `fn` to every leaf of a tree of dicts and lists (leaves are
-    Specs or tensors)."""
+    Specs or tensors), with the matching leaves of the trees in `rest` of
+    the same structure as further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> List[Any]:

@@ -191,6 +191,22 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _layers(tree, n: int):
+    """The n layers of a stacked segment's parameters, each leaf unbound
+    once (views, as `_layer`'s). Under autograd one unbind's backward
+    stacks the layers' gradients, where n selects would each add a
+    zero-padded gradient of the whole stack."""
+    unbound = tree_map(lambda t: t.unbind(0), tree)
+
+    def pick(t, i):
+        if isinstance(t, dict):
+            return {k: pick(v, i) for k, v in t.items()}
+        if isinstance(t, list):
+            return [pick(v, i) for v in t]
+        return t[i]
+    return [pick(unbound, i) for i in range(n)]
+
+
 def _rms(x, eps: float = 1e-6):
     xf = x.to(torch.float32)
     return (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
@@ -272,8 +288,7 @@ def forward(cfg: ModelConfig, params, inputs, *,
     caches = []
     for seg, segp in zip(layer_plan(cfg), params["segments"]):
         layer_caches = []
-        for i in range(seg.count):
-            lp = _layer(segp, i)
+        for lp in _layers(segp, seg.count):
             if seg.kind == "mlstm":
                 x, c = xlstm_lib.apply_mlstm_block(cfg, lp, x,
                                                    kernel_impl=kernel_impl)

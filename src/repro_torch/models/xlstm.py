@@ -91,7 +91,7 @@ def slstm_scan(x_gates, r_weights, H: int, init_state=None):
     # gates side by side in the output, added to the step's input gates
     rw = r_weights.to(F32).permute(1, 2, 0, 3).reshape(Hh, P, 4 * P)
     xg = x_gates.to(F32).permute(1, 3, 0, 2, 4).reshape(S, Hh, B, 4 * P)
-    hs = torch.empty((S, Hh, B, P), dtype=F32, device=dev)
+    hs = []            # stacked at the end: an out= write has no backward
     for t in range(S):
         g = torch.baddbmm(xg[t], h, rw)                  # (H, B, 4P)
         it, ft, zt, ot = g.split(P, dim=-1)
@@ -101,11 +101,11 @@ def slstm_scan(x_gates, r_weights, H: int, init_state=None):
         f_p = torch.exp(lf_m - m_new)
         c = torch.addcmul(f_p * c, i_p, torch.tanh(zt))
         n = torch.addcmul(i_p, f_p, n)
-        h = torch.div(torch.sigmoid(ot) * c, torch.clamp(n, min=1.0),
-                      out=hs[t])
+        h = torch.sigmoid(ot) * c / torch.clamp(n, min=1.0)
+        hs.append(h)
         m = m_new
     state = tuple(s.transpose(0, 1) for s in (h, c, n, m))
-    return hs.permute(2, 0, 1, 3), state
+    return torch.stack(hs).permute(2, 0, 1, 3), state
 
 
 # ---------------------------------------------------------------------------
