@@ -76,6 +76,26 @@ Phases, in order; the script exits non-zero at the first failure:
    Then one micro-window of hymba-1.5b and xlstm-350m at
    smoke width on the card and on the CPU (the autograd route through
    ssd_chunked / mlstm_chunked): losses finite and within 2e-2.
+6c. ECCO's window loop (`repro_torch.core.controller`, through
+   `repro_torch.testing.trace`) on the benign golden scenario (drift_wave,
+   2 regions x 2 streams, 3 windows) and controller config. (a) At smoke
+   width from the reference's initial weights
+   (tests/fixtures/golden_engine_init.npz), fp32 compute, TF32 off, under
+   ecco, naive, ekya and recl, on the card (flash_attention on every eval
+   forward) and on the CPU: `compare` finds no difference, groups and
+   events equal; ecco again on the card with drift_impl="auto" and a
+   top-2 shortlist: the same trace, fleet_drift once a window,
+   pairwise_js once per grouping request that met a job. (b) The four
+   goldens at their own configuration (bf16 compute) on the card: each
+   framework's `compare` differences against tests/golden/, counted, not
+   asserted. (c) olmo-1b at full width (its vocabulary cut to the
+   scenario's 64), random weights, bf16 compute, ecco with the kernel
+   routes, a JobBank of 4 rows, invariants on: ms, micro-windows and
+   tokens trained per window, each kernel's launches against the count
+   reckoned from the eval forwards and the grouping requests, the last
+   window profiled, peak memory beside the bank's bytes; losses finite,
+   triggers equal to an exact host detector's, no host copy of a job's
+   state.
 7. Time each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls) at the
    serving shapes, with CUDA events after warm-up, rotating input buffers
@@ -85,7 +105,9 @@ Phases, in order; the script exits non-zero at the first failure:
    beside it, with each of their kernels' device time). Then the
    alternatives that `[sweep]` measures: flash_attention's plans.
 8. One `{"kernels": [...]}` JSON line (flash_attention's entry also
-   counts the training phase's eval launches), the nvidia-smi line again,
+   counts the training phase's eval launches; flash_attention's,
+   fleet_drift's and pairwise_js's the full-width window loop's as
+   `window_launches`), the nvidia-smi line again,
    and as the last line `{"ok": true, "device": {...}}`.
 
 Every phase prints its seconds (`[phase]`).
@@ -96,6 +118,7 @@ that does not hold the repository's `src/`.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -122,6 +145,9 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.core.baselines import FRAMEWORKS  # noqa: E402
+from repro_torch.core.controller import ControllerConfig  # noqa: E402
 from repro_torch.core.drift import (FleetDriftDetector,  # noqa: E402
                                     batch_token_histogram,
                                     js_divergence_rows, token_histogram)
@@ -154,10 +180,13 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     plan as ssd_plan)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models.convert import load_params_npz  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.param import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.transformer import layer_plan  # noqa: E402
 from repro_torch.models.xlstm import slstm_scan  # noqa: E402
+from repro_torch.testing import trace as wtrace  # noqa: E402
+from repro_torch.testing.invariants import InvariantChecker  # noqa: E402
 
 DEV = torch.device("cuda")
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -243,6 +272,22 @@ TRAIN_BATCH, TRAIN_MICRO, TRAIN_WINDOWS = 8, 4, 3
 # |logit| 8..16, on an H100 80GB HBM3 at 700 W; PERF.md)
 TRAIN_GEN = 64
 GAP_LIMIT = {"fp32": 1e-4, "bf16": 0.25}
+# window loop: the golden drift_wave fleet (2 regions x 2 streams, 3
+# windows) and controller config. Smoke width starts from the
+# reference's initial weights; full width from random weights in a bank
+# of 4 rows (12.89 GB each): 3 live jobs, and in the window where a job
+# dies as its last member is evicted, that job's row, which frees only
+# once the window lets go of the job, beside the new job the evicted
+# member makes (a 3-row bank overflowed there on an H100 80GB HBM3 at
+# 700 W). A fresh state is made outside training, so the peak is the
+# bank plus the larger of a fresh state and a train step's working set
+WINDOW_INIT = os.path.join(HERE, "tests", "fixtures",
+                           "golden_engine_init.npz")
+WINDOW_FP32 = dict(learning_rate=1e-3, b2=0.999, weight_decay=0.0,
+                   warmup_steps=5, total_steps=100000, remat="none",
+                   compute_dtype="float32")
+WINDOW_BANK = 4
+WINDOW_KERNELS = (flash_attention, fleet_drift, pairwise_js)
 
 
 def nvidia_smi() -> str:
@@ -1664,6 +1709,237 @@ def train_smoke_families():
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: the window loop
+# ---------------------------------------------------------------------------
+def _reset_window_launches():
+    for k in WINDOW_KERNELS:
+        k.launches = 0
+
+
+def _window_launches():
+    return {k.__name__: k.launches for k in WINDOW_KERNELS}
+
+
+def _js_requests(events, members):
+    """Grouping requests among `events` (one window's, in order) that met
+    one or more jobs: each makes one pairwise_js call when the shortlist
+    is on. `members` (job -> set of streams) is carried across windows."""
+    n = 0
+    for e in events:
+        if e["kind"] in ("join", "new"):
+            n += any(members.values())
+            members.setdefault(e["job"], set()).add(e["stream"])
+        elif e["kind"] == "evict":
+            members[e["job"]].discard(e["stream"])
+    return n
+
+
+def window_smoke():
+    """(a) The four benign goldens' scenario and controller at smoke width
+    from the reference's initial weights, fp32 compute (TF32 off), on the
+    card (flash_attention on every eval forward) and on the CPU (plain
+    kernels): `compare` empty, groups and events equal. Then ecco on the
+    card with drift_impl="auto" and a top-2 shortlist: the same trace,
+    fleet_drift once a window, pairwise_js once per grouping request that
+    met a job."""
+    init = {0: load_params_npz(WINDOW_INIT)}
+    tcfg = TrainConfig(**WINDOW_FP32)
+    engines = [(dev, wtrace.make_engine_for(wtrace.golden_scenario(),
+                                            tcfg=tcfg, init_params=init,
+                                            device=dev))
+               for dev in (DEV, torch.device("cpu"))]
+    card_traces = {}
+    for fw in wtrace.GOLDEN_FRAMEWORKS:
+        secs, traces = [], []
+        for dev, eng in engines:
+            t0 = time.perf_counter()
+            traces.append(wtrace.golden_trace(fw, eng, device=dev))
+            secs.append(time.perf_counter() - t0)
+        card, cpu = traces
+        diffs = wtrace.compare(card, cpu)
+        acc_gap = max(abs(a - b) for wc, wp in zip(card["windows"],
+                                                   cpu["windows"])
+                      for a, b in zip(wc["acc"].values(), wp["acc"].values())
+                      if a is not None and b is not None)
+        print(f"[window] (a) {fw} fp32, card vs CPU: {len(diffs)} diffs, "
+              f"largest accuracy gap {acc_gap:.4f}; {secs[0]:.1f}s on the "
+              f"card, {secs[1]:.1f}s on the CPU; groups "
+              f"{card['windows'][-1]['groups']}")
+        assert not diffs, diffs
+        for wc, wp in zip(card["windows"], cpu["windows"]):
+            assert wc["groups"] == wp["groups"]
+            assert wc["events"] == wp["events"]
+        card_traces[fw] = card
+    _reset_window_launches()
+    auto = wtrace.golden_trace("ecco", engines[0][1], device=DEV,
+                               drift_impl="auto", shortlist_k=2)
+    got = _window_launches()
+    want_js = _js_requests([e for w in auto["windows"] for e in w["events"]],
+                           {})
+    print(f"[window] (a) ecco with drift_impl=auto, shortlist_k=2 on the "
+          f"card: trace {'equal to' if auto == card_traces['ecco'] else 'NOT'}"
+          f" the exact path's; fleet_drift launches {got['fleet_drift']} "
+          f"(one a window: {len(auto['windows'])}), pairwise_js "
+          f"{got['pairwise_js']} (requests that met a job: {want_js})")
+    assert auto == card_traces["ecco"]
+    assert got["fleet_drift"] == len(auto["windows"]), got
+    assert got["pairwise_js"] == want_js > 0, (got, want_js)
+
+
+def window_goldens():
+    """(b) The four benign goldens at their own configuration (the
+    engine's default bf16 compute over fp32 masters) on the card, from the
+    reference's initial weights: each framework's number of `compare`
+    differences against tests/golden/trace_<fw>.json and the first, not
+    asserted (the goldens' floats follow the reference's bf16 rounding)."""
+    eng = wtrace.make_engine_for(
+        wtrace.golden_scenario(),
+        init_params={0: load_params_npz(WINDOW_INIT)}, device=DEV)
+    out = {}
+    for fw in wtrace.GOLDEN_FRAMEWORKS:
+        got = wtrace.golden_trace(fw, eng, device=DEV)
+        diffs = wtrace.compare(got, wtrace.load_trace(wtrace.golden_path(
+            os.path.join(HERE, "tests", "golden"), fw)))
+        structural = [d for d in diffs if ".groups" in d or ".events" in d
+                      or "count" in d or "meta" in d]
+        print(f"[window] (b) {fw} bf16 vs tests/golden/trace_{fw}.json: "
+              f"{len(diffs)} diffs ({len(structural)} structural)"
+              + (f"; first: {diffs[0]}" if diffs else ""))
+        out[fw] = len(diffs)
+    return out
+
+
+def window_full_width():
+    """(c) olmo-1b at full width (its vocabulary cut to the scenario's 64,
+    as make_engine_for does), random weights from seed 0, the engine's
+    default bf16 compute over fp32 masters, on the golden drift_wave
+    scenario and controller config under ecco with drift_impl="auto", a
+    top-2 shortlist, a JobBank of 4 rows and the invariants checked on
+    every window. Per window: ms, micro-windows and tokens trained, each
+    kernel's launches beside the count reckoned from the eval forwards
+    and the grouping requests, groups and events; the last window under
+    torch.profiler. Checks: invariants, finite losses, triggers equal to
+    an exact host detector's, no host copy of a job's state. Returns the
+    three kernels' launches over the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sc = wtrace.golden_scenario()
+    assert not (sc.churn or sc.bandwidth or sc.profile), sc.name
+    cfg = dataclasses.replace(get_config(ARCH), vocab_size=sc.bank.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    engine = SharedEngine(cfg, device=DEV)
+    engine.bank = bank = JobBank(engine, capacity=WINDOW_BANK)
+
+    def no_growth(need):
+        if need > bank.capacity:
+            raise RuntimeError(
+                f"the window loop made a job for slot {need}, past the "
+                f"bank's {bank.capacity} rows: at full width a grown bank "
+                f"does not fit beside training")
+    bank._grow_to = no_growth
+    forwards, trained = [0], []
+    hits = engine._forward_hits
+
+    def counted_forward(*args, **kw):
+        forwards[0] += 1
+        return hits(*args, **kw)
+    engine._forward_hits = counted_forward
+    train = engine.train_micro_many
+
+    def recorded_train(jobs):
+        rows = {j.job_id: min(j.batch, len(j.pool)) * (j.pool.seq or 0)
+                * j.micro_steps for j in jobs}
+        mets = train(jobs)
+        trained.extend((rows[jid], m) for jid, m in mets.items())
+        return mets
+    engine.train_micro_many = recorded_train
+
+    kw = dict(window_seconds=sc.window_seconds,
+              shared_bandwidth=sc.shared_bandwidth, local_caps=sc.local_caps)
+    kw.update(wtrace.GOLDEN_CONTROLLER, drift_impl="auto", shortlist_k=2)
+    ctl = FRAMEWORKS["ecco"](engine, list(sc.streams), ControllerConfig(**kw))
+    ctl.warmup()
+    exact = FleetDriftDetector(threshold=ctl.cc.drift_threshold,
+                               buckets=ctl.cc.sig_buckets,
+                               vocab=cfg.vocab_size, device="cpu")
+    exact.load_state_dict(ctl.fleet.state_dict())
+    observe, triggers = ctl.fleet.observe, []
+
+    def shadowed(ids, toks):
+        got = observe(ids, toks)
+        triggers.append((got, exact.observe(ids, toks)))
+        return got
+    ctl.fleet.observe = shadowed
+    checker = InvariantChecker(label="full width/ecco")
+    members, totals, jobname = {}, dict.fromkeys(_window_launches(), 0), {}
+    row = 12 * engine.model.num_params() + 4     # params, mu, nu, count
+    print(f"[window] (c) {ARCH} at full width ({engine.model.num_params():,}"
+          f" parameters, vocabulary {cfg.vocab_size}), a bank of "
+          f"{bank.capacity} rows x {row / 1e9:.2f} GB; naive, ekya and recl make four one-stream jobs, which "
+          f"at full width do not fit beside training: they run at smoke "
+          f"width only ((a), (b))")
+    for w in range(sc.windows):
+        _reset_window_launches()
+        forwards[0], trained[:] = 0, []
+        checker.before_window(ctl)
+        n_ev = len(ctl.grouper.events)
+        last = w == sc.windows - 1
+        torch.cuda.synchronize()
+        with (profile(activities=[ProfilerActivity.CUDA]) if last
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            wm = ctl.run_window()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        events = ctl.grouper.events[n_ev:]
+        checker.after_window(ctl, wm, events)
+        rec = wtrace._window_record(ctl, wm, events, jobname)
+        got = _window_launches()
+        want = {"flash_attention": forwards[0] * cfg.num_layers,
+                "fleet_drift": 1,
+                "pairwise_js": _js_requests(rec["events"], members)}
+        for k in totals:
+            totals[k] += got[k]
+        tokens = sum(t for t, _ in trained)
+        losses = [x for _, m in trained for x in m["loss"].tolist()]
+        print(f"[window] (c) window {w}{' (profiled)' if last else ''}: "
+              f"{ms:.1f} ms; {len(trained)} micro-windows, {tokens} tokens "
+              f"trained; {forwards[0]} eval forwards; launches {got} "
+              f"(reckoned {want}); jobs {len(ctl.jobs)}; groups "
+              f"{rec['groups']}; events "
+              f"{[(e['kind'], e['stream'], e['job']) for e in rec['events']]}"
+              f"; losses {[round(x, 4) for x in losses]}")
+        assert got == want, (got, want)
+        assert losses and all(math.isfinite(x) for x in losses), losses
+    busy, kernels = _device_busy_ms(prof)
+    if kernels:
+        print(f"[window] (c) profiled window: device busy {busy:.1f} ms of "
+              f"{ms:.1f} ms, {kernels} kernels, idle share "
+              f"{1 - busy / ms:.3f} (an upper bound: the profiler slows the "
+              f"host)")
+    else:
+        print("[window] (c) the profiler saw no device time; idle share "
+              "not measured")
+    top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    for e in top[:5]:
+        print(f"[window]   {e.device_time_total / 1e3:8.1f} ms x{e.count:<5} "
+              f"{e.key[:90]}")
+    for got, want in triggers:
+        assert got == want, (got, want)
+    assert all(n > 0 for n in totals.values()), totals
+    assert bank._host is None           # no job's state crossed to the host
+    assert checker.windows_checked == sc.windows
+    assert bank.state_row_nbytes == row, (bank.state_row_nbytes, row)
+    print(f"[window] (c) peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB beside the "
+          f"bank's reckoned {bank.capacity * bank.state_row_nbytes / 1e9:.2f}"
+          f" GB; triggers {[sorted(g) for g, _ in triggers]} equal to the "
+          f"exact host path's; invariants held on {checker.windows_checked} "
+          f"windows; host mirror never allocated")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing
 # ---------------------------------------------------------------------------
 def _time_ms(fn, sets, iters=50, warmup=5):
@@ -2131,6 +2407,12 @@ def main():
     train_eval = phase(f"train {ARCH}", train_full_width)
     torch.cuda.empty_cache()
     phase("train smoke families", train_smoke_families)
+    torch.cuda.empty_cache()
+    phase("window smoke", window_smoke)
+    phase("window goldens", window_goldens)
+    torch.cuda.empty_cache()
+    window = phase(f"window {ARCH}", window_full_width)
+    torch.cuda.empty_cache()
     att = phase("time flash_attention", time_attention, pk)
     phase("sweep flash_attention plans", sweep_attention_plans)
     fd = phase("time fleet_drift", time_fleet_drift, pk, windows, refs)
@@ -2160,14 +2442,17 @@ def main():
              hymba_launches=hymba["flash_attention"],
              hymba_combine_launches=hymba["flash_attention_combine"],
              train_eval_launches=train_eval,
+             window_launches=window["flash_attention"],
              tensor_core_hmma=hmma),
-        _entry("fleet_drift", *src["fleet_drift"], launches["fleet_drift"],
-               err["fleet_drift"], fd),
+        dict(_entry("fleet_drift", *src["fleet_drift"],
+                    launches["fleet_drift"], err["fleet_drift"], fd),
+             window_launches=window["fleet_drift"]),
         dict(_entry("pairwise_js", *src["pairwise_js"],
                     launches["pairwise_js"], err["pairwise_js"], pj[1],
                     requests_32=pj[32]),
              storm_full_uploads=storm["full_uploads"],
-             storm_rows_uploaded=storm["rows_uploaded"]),
+             storm_rows_uploaded=storm["rows_uploaded"],
+             window_launches=window["pairwise_js"]),
         dict(_entry("ssd_scan", *src["ssd_scan"], launches["ssd_scan"],
                     err["ssd_scan"], ssd),
              bound_cuda_core_ms=ssd["bound_cuda_core"][0]),

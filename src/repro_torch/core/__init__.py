@@ -12,4 +12,11 @@ grouping.py — Alg. 2 dynamic grouping (metadata prefilter + accuracy
 batching.py — the duck-typed probe for a batched training engine.
 trainer.py — the training plane: `TokenRingPool`, the stacked `JobBank`,
     `SharedEngine` (batched evals and micro-windows) and `RetrainJob`.
+gaimd.py — the GAIMD fluid model, a host fp32 loop.
+transmission.py — §3.2: the profiled sampling-config table and the
+    fleet transmission plane (GAIMD bandwidth, batched decisions).
+allocator.py — Alg. 1 GPU allocation and its RECL / uniform baselines.
+controller.py — the window loop: drift -> grouping -> transmission ->
+    allocation -> regrouping -> metrics.
+baselines.py — the naive / Ekya / RECL frameworks and `FRAMEWORKS`.
 """

@@ -59,8 +59,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.batching import job_precision
 from repro_torch.core.grouping import Request
+from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import build_model
 from repro_torch.models.param import tree_map
+from repro_torch.train.optimizer import init_opt_state
 from repro_torch.train.train_step import init_state, make_train_step
 
 F32 = torch.float32
@@ -683,6 +685,16 @@ class JobBank:
         return stack
 
 
+def _hit_mean(count: np.ndarray, n: int) -> np.ndarray:
+    """Mean accuracy from fp32 hit counts over `n` positions, rounded as
+    the reference's `jnp.mean` rounds it: XLA multiplies the sum by the
+    fp32 reciprocal of n. The counts are exact integers in fp32 (below
+    2^24 positions), so equal hits give equal accuracies bit for bit;
+    `count / n` would differ in the last bit in about half the cases."""
+    return (np.asarray(count, np.float32)
+            * (np.float32(1.0) / np.float32(n))).astype(np.float32)
+
+
 class SharedEngine:
     """Train/eval entry points shared by every job of a fleet.
 
@@ -697,12 +709,19 @@ class SharedEngine:
     the bank and the forwards live ("cuda" unless the caller asks for
     the CPU). The reference's `batch_min_jobs` is not taken: every job
     trains on the one-job step (see the module docstring).
+
+    `init_params` ({seed: tree of numpy arrays}) makes `fresh_state(seed)`
+    return those parameters, with zero AdamW moments, and raise for any
+    other seed: `jax.random` and `torch.Generator` draw different weights
+    from one seed, so a run held to the reference's (the golden traces)
+    starts from the reference's own initialisation. Without it,
+    `fresh_state` draws the port's torch initialisation.
     """
 
     def __init__(self, cfg: ModelConfig, tcfg: Optional[TrainConfig] = None,
                  *, distill_weight: float = 1.0, batched: bool = True,
                  eval_chunk: int = 128, resident: Optional[bool] = None,
-                 mesh=None, device="cuda"):
+                 mesh=None, device="cuda", init_params=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # the card's index, so that the bank knows a state whose
@@ -721,9 +740,21 @@ class SharedEngine:
         self.batched = bool(batched)
         self.eval_chunk = int(eval_chunk)
         self.bank = JobBank(self, resident=resident, mesh=mesh)
+        self._init_params = (None if init_params is None
+                             else {int(k): v for k, v in init_params.items()})
 
     def fresh_state(self, seed: int = 0):
-        return init_state(self.model, seed, self.tcfg, device=self.device)
+        if self._init_params is None:
+            return init_state(self.model, seed, self.tcfg,
+                              device=self.device)
+        if seed not in self._init_params:
+            raise KeyError(
+                f"this engine was given initial parameters for seeds "
+                f"{sorted(self._init_params)} only; fresh_state({seed})")
+        dtype = getattr(torch, self.tcfg.param_dtype)
+        params = tree_map(lambda x: x.to(dtype), params_from_numpy(
+            self._init_params[seed], device=self.device))
+        return {"params": params, "opt": init_opt_state(params)}
 
     def train_steps(self, state, batches):
         """Train `state` in place on each batch in order. Returns (state,
@@ -753,11 +784,12 @@ class SharedEngine:
     def accuracy(self, params, tokens, *, precision: str = "fp32") -> float:
         """Top-1 next-token accuracy — the mAP analogue. `precision`
         picks the decision-plane eval dtype."""
+        hits = self._forward_hits(params, self._tokens(tokens), precision)
         # fleetlint: disable=host-sync -- the scalar decision API
         # returns a host float by contract; batched callers use
         # batched_accuracy, whose results cross once per chunk
-        return float(torch.mean(self._forward_hits(
-            params, self._tokens(tokens), precision)))
+        count = hits.sum().cpu().numpy()
+        return float(_hit_mean(count, hits.numel()))
 
     # -- batched eval plane -------------------------------------------------
     def batched_accuracy(self, params_stack, tokens, job_ids, *,
@@ -804,10 +836,11 @@ class SharedEngine:
                 tk[:m * b] = toks[sel].reshape(m * b, -1)
                 hits = self._forward_hits(params, self._tokens(tk),
                                           precision)
-                res = torch.mean(hits.reshape(m_pad, b, -1), dim=(1, 2))
+                count = hits.reshape(m_pad, b, -1).sum(dim=(1, 2))
                 # fleetlint: disable=host-sync -- one (m,) result crossing
                 # per (job, chunk), the batched API's host return
-                out[sel] = res[:m].cpu().numpy()
+                out[sel] = _hit_mean(count[:m].cpu().numpy(),
+                                     hits.shape[0] // m_pad * hits.shape[1])
         return out
 
     def _bank_slot(self, job) -> Optional[int]:

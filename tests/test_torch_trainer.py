@@ -8,12 +8,12 @@ job, same batch order) — so the decisions they feed are pinned.
 `SharedEngine(batched=False)` is the scalar reference twin: the same
 model config and seeds give the same initial states.
 
-Two reference tests are not restated yet:
-  * `test_checkpoint_restore_writes_through_cache` waits for the port's
-    checkpoints (ROADMAP.md queue 1 item 9, distribution);
-  * `test_allocator_decisions_identical_batched_vs_scalar` waits for the
-    port's allocator (queue 1 item 3), as does the allocator tail of
-    `test_residency_parity_across_churn`.
+One reference test is not restated yet:
+`test_checkpoint_restore_writes_through_cache` waits for the port's
+checkpoints (ROADMAP.md queue 1 item 9, distribution).
+`test_allocator_decisions_identical_batched_vs_scalar` and the allocator
+tail of `test_residency_parity_across_churn` are in
+tests/test_torch_allocator.py, beside the port's allocator.
 """
 import dataclasses
 import gc
@@ -527,8 +527,8 @@ def test_train_micro_and_eval_on_match_jax():
     """One RetrainJob micro-window from the same bridged state and seed:
     each step's batch is drawn by the job's rng in the same order, the
     step losses agree within 1e-4 (fp32 compute), and eval_on after the
-    window gives the same accuracy (the same hits; the mean within one
-    fp32 ulp)."""
+    window gives the same accuracy bit for bit (the same hits, the mean
+    rounded as XLA rounds it)."""
     jcfg = dataclasses.replace(jax_smoke_config("olmo-1b"),
                                vocab_size=VOCAB)
     jeng = jtrainer.SharedEngine(jcfg, JTrainConfig(**FP32))
@@ -560,12 +560,61 @@ def test_train_micro_and_eval_on_match_jax():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
     assert _states_equal(jjob.state["opt"]["count"],
                          tjob.state["opt"]["count"])
-    # the same hit count: XLA's mean rounds its last bit differently
-    # (3 hits of 120 read 0.025000002 in JAX, 0.025000000 in torch)
-    np.testing.assert_allclose(tjob.eval_on(subs), jjob.eval_on(subs),
-                               atol=1e-6, rtol=0)
-    np.testing.assert_allclose(teng.eval_jobs([tjob]),
-                               jeng.eval_jobs([jjob]), atol=1e-6, rtol=0)
+    assert tjob.eval_on(subs) == jjob.eval_on(subs)
+    assert teng.eval_jobs([tjob]) == jeng.eval_jobs([jjob])
+
+
+def _hits(rng, rows, cols, rate):
+    return (rng.random((rows, cols)) < rate).astype(np.float32)
+
+
+@pytest.mark.parametrize("cols", [31, 63, 255])
+def test_accuracy_mean_rounds_as_xla(cols):
+    """The hit mean is the exact count times fp32(1/n), as XLA computes
+    `jnp.mean`: equal on every case, scalar and per member, where the
+    old `torch.mean` (count / n) misses the last bit in some."""
+    from repro_torch.core.trainer import _hit_mean
+    rng = np.random.default_rng(cols)
+    per_member = jax.jit(lambda h: jnp.mean(h.reshape(-1, 8, cols),
+                                            axis=(1, 2)))
+    old_misses = 0
+    for rows in (1, 2, 8, 16, 64):
+        for rate in (0.01, 0.1, 0.3, 0.5, 0.7, 0.9, 0.99):
+            h = _hits(rng, rows, cols, rate)
+            want = np.float32(jnp.mean(h))
+            assert _hit_mean(h.sum(), h.size) == want
+            old_misses += float(torch.mean(torch.from_numpy(h))) != want
+            if rows % 8 == 0:
+                count = h.reshape(-1, 8, cols).sum(axis=(1, 2))
+                np.testing.assert_array_equal(_hit_mean(count, 8 * cols),
+                                              per_member(h))
+    assert old_misses > 0
+
+
+def test_engine_accuracies_equal_jax_bit_for_bit():
+    """accuracy, batched_accuracy (members padded to 8) and eval_pairs on
+    bridged weights: the reference's floats, bit for bit."""
+    jcfg = dataclasses.replace(jax_smoke_config("olmo-1b"),
+                               vocab_size=VOCAB)
+    jeng = jtrainer.SharedEngine(jcfg, JTrainConfig(**FP32))
+    jparams = jax.tree.map(np.asarray, jeng.fresh_state(0)["params"])
+    teng = SharedEngine(_cfg(), TrainConfig(**FP32), device="cpu",
+                        init_params={0: jparams})
+    tparams = teng.fresh_state(0)["params"]
+    rng = np.random.default_rng(4)
+    # a sharp, repetitive stream: a random model hits some of it
+    base = rng.integers(0, VOCAB, 8)
+    for rows in (1, 3, 16):
+        toks = np.tile(base, (rows, 4))[:, :SEQ + 1]
+        toks[rng.random(toks.shape) < 0.3] = 0
+        assert teng.accuracy(tparams, toks) == jeng.accuracy(jparams, toks)
+    stack = jax.tree.map(lambda x: x[None], jparams)
+    tstack = params_from_numpy(stack, device="cpu")
+    toks = np.stack([np.tile(base, (4, 4))[:, :SEQ] for _ in range(5)])
+    toks[rng.random(toks.shape) < 0.2] = 1
+    np.testing.assert_array_equal(
+        teng.batched_accuracy(tstack, toks, np.zeros(5, np.int64)),
+        jeng.batched_accuracy(stack, toks, np.zeros(5, np.int64)))
 
 
 def _grouper_replay(engine):
