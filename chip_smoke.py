@@ -117,6 +117,7 @@ that does not hold the repository's `src/`.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -154,7 +155,7 @@ from repro_torch.core.drift import (FleetDriftDetector,  # noqa: E402
 from repro_torch.core.grouping import Grouper, Request  # noqa: E402
 from repro_torch.core.signature_index import SignatureIndex  # noqa: E402
 from repro_torch.core.trainer import (JobBank, RetrainJob,  # noqa: E402
-                                      SharedEngine)
+                                      SharedEngine, _hit_mean)
 from repro_torch.data.scenarios import build_scenario  # noqa: E402
 from repro_torch.data.streams import DomainBank, Region  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -287,6 +288,7 @@ WINDOW_FP32 = dict(learning_rate=1e-3, b2=0.999, weight_decay=0.0,
                    warmup_steps=5, total_steps=100000, remat="none",
                    compute_dtype="float32")
 WINDOW_BANK = 4
+WINDOW_ACC_GAP = 1e-4       # (a): card vs CPU per-stream accuracies
 WINDOW_KERNELS = (flash_attention, fleet_drift, pairwise_js)
 
 
@@ -372,9 +374,9 @@ def check_attention():
     blocks or more, one; split-KV decode over strided cache views with
     ragged last splits, splits of several tiles, and S = 4 appended
     queries with a window, so splits before the first visible key), then
-    the serving shapes and the training plane's eval shapes (fp32 on the
-    CUDA-core kernel, bf16 on the tensor-core prefill). Returns the
-    largest error at those shapes."""
+    the serving shapes, the training plane's eval shapes (fp32 on the
+    CUDA-core kernel, bf16 on the tensor-core prefill) and the window
+    loop's (fp32). Returns the largest error at those shapes."""
     gen = torch.Generator(device=DEV).manual_seed(0)
     sweep = [(1, 128, 128, 4, 4, 64), (2, 64, 64, 4, 2, 32),
              (1, 96, 96, 8, 1, 64), (1, 32, 128, 4, 2, 64)]
@@ -478,6 +480,15 @@ def check_attention():
         serving.append(_attn_case(
             f"train-plane eval {str(dtype)[6:]} (64,{TRAIN_SEQ},16,16,128) "
             f"causal", q, k, v, path))
+    # the window loop's evals: 8 members flattened into one forward of
+    # the scenario's 32 tokens, 16 or 8 rows a member, fp32 on the
+    # CUDA-core kernel
+    for rows in (128, 64):
+        q, k, v = (_randn((rows, 32, 16, 128), torch.float32, gen)
+                   for _ in range(3))
+        serving.append(_attn_case(
+            f"window eval fp32 ({rows},32,16,16,128) causal", q, k, v,
+            "cuda_core"))
     return max(serving)
 
 
@@ -1762,10 +1773,14 @@ def window_smoke():
                       for a, b in zip(wc["acc"].values(), wp["acc"].values())
                       if a is not None and b is not None)
         print(f"[window] (a) {fw} fp32, card vs CPU: {len(diffs)} diffs, "
-              f"largest accuracy gap {acc_gap:.4f}; {secs[0]:.1f}s on the "
+              f"largest accuracy gap {acc_gap!r} (limit {WINDOW_ACC_GAP:g})"
+              f"; {secs[0]:.1f}s on the "
               f"card, {secs[1]:.1f}s on the CPU; groups "
               f"{card['windows'][-1]['groups']}")
         assert not diffs, diffs
+        # accuracies are kept to 4 digits and one hit moves a stream's by
+        # 1/(rows x 31) > 2e-4: a gap under 1e-4 is equal hits
+        assert acc_gap <= WINDOW_ACC_GAP, (fw, acc_gap)
         for wc, wp in zip(card["windows"], cpu["windows"]):
             assert wc["groups"] == wp["groups"]
             assert wc["events"] == wp["events"]
@@ -1809,6 +1824,88 @@ def window_goldens():
     return out
 
 
+def _window_gemm_rate(cfg, shapes, prof):
+    """The profiled window's fp32 eval GEMMs: their operations reckoned
+    from the eval forwards' shapes (M = rows x S a forward; per layer
+    q, k, v, o and SwiGLU's gate, up, down, N x K from the config; the
+    tied head d_model x vocab), their launches and device time as the
+    profiler read them, and the rate that makes."""
+    assert cfg.act == "swiglu", cfg.act
+    hd = cfg.head_dim or cfg.d_model // cfg.num_heads
+    per_layer = (cfg.d_model * hd * 2 * (cfg.num_heads + cfg.num_kv_heads)
+                 + 3 * cfg.d_model * cfg.d_ff)
+    tokens = sum(rows * seq for rows, seq in shapes)
+    flop = 2 * tokens * (cfg.num_layers * per_layer
+                         + cfg.d_model * cfg.vocab_size)
+    gemms = sorted((e for e in prof.key_averages()
+                    if "gemm" in e.key and "bf16" not in e.key
+                    and ("f32" in e.key or "sgemm" in e.key)),
+                   key=lambda e: -e.device_time_total)
+    ms = sum(e.device_time_total for e in gemms) / 1e3
+    n = sum(e.count for e in gemms)
+    print(f"[window] (c) profiled window's fp32 GEMM kernels (the evals' "
+          f"and any other): {n} launches, {ms:.1f} ms on the device; the "
+          f"eval forwards' {7 * cfg.num_layers * len(shapes)} layer GEMMs "
+          f"and {len(shapes)} heads over {len(shapes)} forwards "
+          f"{dict(collections.Counter(shapes))}, {tokens} tokens, make "
+          f"{flop / 1e12:.2f} TFLOP from the shapes: at most "
+          f"{flop / ms / 1e9 if ms else float('nan'):.1f} TFLOP/s (the "
+          f"data sheet's fp32 peak "
+          f"{peaks(torch.cuda.get_device_name(0))[torch.float32] / 1e12:g})")
+    for e in gemms:
+        print(f"[window]   {e.device_time_total / 1e3:8.1f} ms x{e.count:<5} "
+              f"{e.key[:90]}")
+
+
+def _window_evals_held(engine, ctl):
+    """One eval_jobs call over the window loop's live jobs at the loop's
+    shapes and precision, every forward through flash_attention held to
+    the plain route on the same params and rows: the largest logit
+    difference within GAP_LIMIT, every argmax flip where the plain top-1
+    leads by at most twice it, and each job's accuracy the one its
+    kernel-route logits give (over the vocabulary; the padded columns
+    hold -1e30 on both routes)."""
+    precision, vocab = ctl.cc.job_precision, engine.cfg.vocab_size
+    held, apply = [], engine.model.apply
+
+    def held_apply(params, toks, **kw):
+        out = apply(params, toks, **kw)
+        plain = apply(params, toks, **dict(kw, kernel_impl="ref"))
+        held.append((toks, out[0][:, :-1, :vocab].float(),
+                     plain[0][:, :-1, :vocab].float()))
+        return out
+    engine.model.apply = held_apply
+    _reset_window_launches()
+    accs = engine.eval_jobs(ctl.jobs)
+    launches = flash_attention.launches
+    del engine.model.apply              # back to the class's method
+    assert len(held) == len(ctl.jobs), (len(held), len(ctl.jobs))
+    assert launches == len(held) * engine.cfg.num_layers, launches
+    for job, acc, (toks, lk, lr) in zip(ctl.jobs, accs, held):
+        labels = toks[:, 1:]
+        gap = float((lk - lr).abs().max())
+        ak, ap = lk.argmax(-1), lr.argmax(-1)
+        diff = ak != ap
+        top2 = lr[diff].topk(2, dim=-1).values
+        leads = (top2[:, 0] - top2[:, 1]).tolist()
+        b = len(job.members[0].subsamples)
+        hit = (ak == labels).float().reshape(-1, b * labels.shape[1])
+        # eval_jobs averages the members' fp32 accuracies in float64
+        mine = float(np.mean(_hit_mean(
+            hit[:len(job.members)].sum(1).cpu().numpy(),
+            hit.shape[1]).astype(np.float64)))
+        print(f"[window] (c) eval_jobs {job.job_id} {precision} "
+              f"{tuple(toks.shape)}: accuracy {acc!r} (from the kernel "
+              f"route's logits {mine!r}); largest logit difference to the "
+              f"plain route {gap:.3e} (limit {GAP_LIMIT[precision]:g}, max "
+              f"|plain| {float(lr.abs().max()):.3g}); {int(diff.sum())} "
+              f"argmax flips, plain top-1 leads {sorted(leads)[:8]}")
+        assert bool(torch.isfinite(lk).all()), job.job_id
+        assert gap <= GAP_LIMIT[precision], (gap, precision)
+        assert all(x <= 2 * gap for x in leads), leads
+        assert mine == acc, (mine, acc)
+
+
 def window_full_width():
     """(c) olmo-1b at full width (its vocabulary cut to the scenario's 64,
     as make_engine_for does), random weights from seed 0, the engine's
@@ -1837,12 +1934,12 @@ def window_full_width():
                 f"bank's {bank.capacity} rows: at full width a grown bank "
                 f"does not fit beside training")
     bank._grow_to = no_growth
-    forwards, trained = [0], []
+    shapes, trained = [], []        # each eval forward's (rows, S)
     hits = engine._forward_hits
 
-    def counted_forward(*args, **kw):
-        forwards[0] += 1
-        return hits(*args, **kw)
+    def counted_forward(params, toks, precision):
+        shapes.append(tuple(toks.shape))
+        return hits(params, toks, precision)
     engine._forward_hits = counted_forward
     train = engine.train_micro_many
 
@@ -1880,7 +1977,7 @@ def window_full_width():
           f"width only ((a), (b))")
     for w in range(sc.windows):
         _reset_window_launches()
-        forwards[0], trained[:] = 0, []
+        shapes[:], trained[:] = [], []
         checker.before_window(ctl)
         n_ev = len(ctl.grouper.events)
         last = w == sc.windows - 1
@@ -1895,7 +1992,7 @@ def window_full_width():
         checker.after_window(ctl, wm, events)
         rec = wtrace._window_record(ctl, wm, events, jobname)
         got = _window_launches()
-        want = {"flash_attention": forwards[0] * cfg.num_layers,
+        want = {"flash_attention": len(shapes) * cfg.num_layers,
                 "fleet_drift": 1,
                 "pairwise_js": _js_requests(rec["events"], members)}
         for k in totals:
@@ -1904,7 +2001,8 @@ def window_full_width():
         losses = [x for _, m in trained for x in m["loss"].tolist()]
         print(f"[window] (c) window {w}{' (profiled)' if last else ''}: "
               f"{ms:.1f} ms; {len(trained)} micro-windows, {tokens} tokens "
-              f"trained; {forwards[0]} eval forwards; launches {got} "
+              f"trained; {len(shapes)} eval forwards "
+              f"{dict(collections.Counter(shapes))}; launches {got} "
               f"(reckoned {want}); jobs {len(ctl.jobs)}; groups "
               f"{rec['groups']}; events "
               f"{[(e['kind'], e['stream'], e['job']) for e in rec['events']]}"
@@ -1912,6 +2010,7 @@ def window_full_width():
         assert got == want, (got, want)
         assert losses and all(math.isfinite(x) for x in losses), losses
     busy, kernels = _device_busy_ms(prof)
+    _window_gemm_rate(cfg, shapes, prof)
     if kernels:
         print(f"[window] (c) profiled window: device busy {busy:.1f} ms of "
               f"{ms:.1f} ms, {kernels} kernels, idle share "
@@ -1926,6 +2025,7 @@ def window_full_width():
               f"{e.key[:90]}")
     for got, want in triggers:
         assert got == want, (got, want)
+    _window_evals_held(engine, ctl)
     assert all(n > 0 for n in totals.values()), totals
     assert bank._host is None           # no job's state crossed to the host
     assert checker.windows_checked == sc.windows

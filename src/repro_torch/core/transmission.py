@@ -220,26 +220,6 @@ class TransmissionController:
             delivered_tokens=delivered)
 
 
-def batchable_table(table) -> Optional[ProfileTable]:
-    """Duck-typed probe (mirrors core/batching.shared_engine): the
-    batched decision path needs EVERYTHING it dereferences — the
-    `best_many` masked argmax AND the dense per-config arrays it reads
-    the chosen rates/resolutions from. Tables missing any of it
-    (scripted fakes that only implement `best`, third-party tables
-    without the dense layout) make the plane fall back to the scalar
-    per-flow `decide` loop — dispatch cost changes, decisions never
-    do."""
-    if table is None:
-        return None
-    for attr in ("best_many", "best"):
-        if not callable(getattr(table, attr, None)):
-            return None
-    for attr in ("configs", "_rates", "_res"):
-        if not hasattr(table, attr):
-            return None
-    return table
-
-
 @dataclasses.dataclass
 class FleetDecisionBatch:
     """Dense per-flow §3.2 decisions (all arrays length N, flow order).
@@ -265,21 +245,6 @@ class FleetDecisionBatch:
                     target_rate=float(self.target_rate[i]),
                     delivered_tokens=int(self.delivered[i]))
                 for i in range(len(self.rate))]
-
-    @classmethod
-    def from_decisions(cls, decs: Sequence[TransmissionDecision],
-                       deliverable: np.ndarray) -> "FleetDecisionBatch":
-        return cls(
-            rate=np.array([d.config.rate for d in decs], np.int64),
-            resolution=np.array([d.config.resolution for d in decs],
-                                np.int64),
-            scaled_rate=np.array([d.scaled_rate for d in decs], np.float64),
-            gaimd_alpha=np.array([d.gaimd_alpha for d in decs], np.float64),
-            gaimd_beta=np.array([d.gaimd_beta for d in decs], np.float64),
-            target_rate=np.array([d.target_rate for d in decs], np.float64),
-            deliverable=np.asarray(deliverable, np.int64),
-            delivered=np.array([d.delivered_tokens for d in decs],
-                               np.int64))
 
 
 class FleetTransmissionPlane:
@@ -396,27 +361,8 @@ class FleetTransmissionPlane:
         """One call for every flow's sampling config, GAIMD params,
         deliverable tokens, and compression — bit-identical to a
         per-camera `TransmissionController.decide` loop
-        (tests/test_torch_transmission.py). Falls back to that exact
-        loop when the table is a duck-typed fake without `best_many`."""
+        (tests/test_torch_transmission.py)."""
         n = len(p_shares)
-        if batchable_table(self.table) is None:
-            ctrl = TransmissionController(
-                self.table, bytes_per_token=self.bytes_per_token)
-            tbs = ([None] * n if token_budgets is None
-                   else list(token_budgets))
-            # fleetlint: disable=per-member-loop -- THE documented
-            # scalar fallback for duck-typed tables without best_many;
-            # parity-locked to decide()
-            decs = [ctrl.decide(gpu_budget_level=budget_levels[i],
-                                token_budget=tbs[i],
-                                p_share=float(p_shares[i]),
-                                n_members=int(n_members[i]),
-                                achieved_bandwidth=float(achieved_bw[i]),
-                                window_seconds=window_seconds)
-                    for i in range(n)]
-            deliv = [int(float(achieved_bw[i]) * window_seconds
-                         / self.bytes_per_token) for i in range(n)]
-            return FleetDecisionBatch.from_decisions(decs, deliv)
         idx = self.table.best_many(budget_levels, token_budgets)
         if len(self.table.configs):
             safe = np.maximum(idx, 0)

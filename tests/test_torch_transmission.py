@@ -106,14 +106,14 @@ def test_decide_many_empty_and_duck_typed_tables():
                  jtx.FleetTransmissionPlane(jtx.ProfileTable([])).decide_many(
                      **kw))
 
-    t, jt = _tables()
+    t, _ = _tables()
 
-    class OnlyBest:            # no best_many: the scalar fallback loop
+    class OnlyBest:            # no best_many: the port has no scalar loop
         def __init__(self, inner):
             self.best = inner.best
             self.levels = inner.levels
-    _batch_equal(tx.FleetTransmissionPlane(OnlyBest(t)).decide_many(**kw),
-                 jtx.FleetTransmissionPlane(OnlyBest(jt)).decide_many(**kw))
+    with pytest.raises(AttributeError, match="best_many"):
+        tx.FleetTransmissionPlane(OnlyBest(t)).decide_many(**kw)
 
 
 def test_levels_for_shares_equal():
