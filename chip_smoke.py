@@ -17,9 +17,14 @@ Phases, in order; the script exits non-zero at the first failure:
    of olmo-1b (bf16 prefill (1, 512, 16, 16, 128) causal; decode S=1 over
    a strided prefix of a (4, 1024, 16, 128) bf16 cache) and of hymba-1.5b
    (GQA 25/5 at head_dim 64: prefill (1, 1152) causal; decode over a
-   strided prefix of a (4, 1184, 5, 64) cache) and the training plane's
-   eval forward (64, 256, 16, 16, 128) causal in fp32 and bf16; for
-   ssd_scan the six
+   strided prefix of a (4, 1184, 5, 64) cache), the training plane's
+   eval forward (64, 256, 16, 16, 128) causal in fp32 and bf16, a decode
+   of 128 splits (MQA over 8192 keys), and the fleet tick's decode with
+   per-lane `lengths` over the whole pool (olmo's (32, 1024, 16, 128) and
+   hymba's (32, 1184, 5, 64) bf16 caches with lengths 1..capacity on the
+   split-KV decode, fp32 q over olmo's on the CUDA-core kernel, and four
+   lanes whose splits lie past their lengths, lanes of length 0
+   included); for ssd_scan the six
    cases of tests/test_kernels.py and hymba's prefill shape (1, 1152, 50,
    64, N 16) at chunks 64 and 128, final state included, bf16 on the
    tensor-core path and fp32 on the CUDA-core kernel (also against the
@@ -96,18 +101,41 @@ Phases, in order; the script exits non-zero at the first failure:
    window profiled, peak memory beside the bank's bytes; losses finite,
    triggers equal to an exact host detector's, no host copy of a job's
    state.
+6d. The fleet serving plane (`repro_torch.serve.plane`). (a) olmo-1b at
+   its published config, random weights: three groups seeded from seeds
+   0-2 (4 fp32 store rows, 18.8 GB, and their bf16 copy), a seed-3
+   candidate through the gate on an (8, 256) sample that the first
+   group's model continued, then 48 queries (16
+   a group, prompts of 512 and 384 tokens in turn) through 32 slots of
+   1024 positions, 32 new tokens. Counters set to 0 just before the pump
+   and read just after: 16 flash_attention launches and 16 combines per
+   tick, 16 launches per batched prefill. ms per tick (median, p99),
+   lanes per tick, tokens/s, the gate's decision, peak memory beside the
+   store's bytes, one profiled tick (busy, idle share, kernels); one lane
+   per group held to a solo `ServeLoop` decode of its row where the solo
+   top-1 leads by more than FLEET_LEAD. (b) At smoke width: ecco's window
+   loop with `serve` on from the reference's initial weights in fp32, on
+   the card and on the CPU, and on the card with `serve` off: decisions
+   equal across the three, serve reports but their clock readings equal
+   card vs CPU; hymba and xlstm through the fleet step card vs CPU (fp32
+   logits within FLEET_SMOKE_TOL, bf16 tokens where the CPU's top-1
+   leads); `launch.serve --fleet` and `examples.serve_continuous` on the
+   card.
 7. Time each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls) at the
    serving shapes, with CUDA events after warm-up, rotating input buffers
    so that L2 does not hold them; print each beside the kernel's bound
    from its bytes and operations and the data-sheet peaks of the card
    (mlstm_scan and ssd_scan: on bf16 tensor cores, and on fp32 CUDA cores
-   beside it, with each of their kernels' device time). Then the
-   alternatives that `[sweep]` measures: flash_attention's plans.
+   beside it, with each of their kernels' device time; flash_attention
+   also at the fleet tick's ragged lengths, whose bound counts the keys
+   the lanes' lengths hold). Then the alternatives that `[sweep]`
+   measures: flash_attention's plans.
 8. One `{"kernels": [...]}` JSON line (flash_attention's entry also
-   counts the training phase's eval launches; flash_attention's,
-   fleet_drift's and pairwise_js's the full-width window loop's as
-   `window_launches`), the nvidia-smi line again,
+   counts the training phase's eval launches, the full-width fleet
+   pump's as `fleet_launches` and `fleet_combine_launches`;
+   flash_attention's, fleet_drift's and pairwise_js's the full-width
+   window loop's as `window_launches`), the nvidia-smi line again,
    and as the last line `{"ok": true, "device": {...}}`.
 
 Every phase prints its seconds (`[phase]`).
@@ -121,6 +149,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -158,6 +187,7 @@ from repro_torch.core.trainer import (JobBank, RetrainJob,  # noqa: E402
                                       SharedEngine, _hit_mean)
 from repro_torch.data.scenarios import build_scenario  # noqa: E402
 from repro_torch.data.streams import DomainBank, Region  # noqa: E402
+from repro_torch.examples import serve_continuous  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import SOURCE as FA_SOURCE  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -186,6 +216,10 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.param import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.transformer import layer_plan  # noqa: E402
 from repro_torch.models.xlstm import slstm_scan  # noqa: E402
+from repro_torch.serve.kvcache import ServeLoop  # noqa: E402
+from repro_torch.serve.plane import (TIMING_KEYS as SERVE_TIMING,  # noqa: E402
+                                     FleetServePlane, ServeConfig)
+from repro_torch.serve.serve_step import fleet_decode_logits  # noqa: E402
 from repro_torch.testing import trace as wtrace  # noqa: E402
 from repro_torch.testing.invariants import InvariantChecker  # noqa: E402
 
@@ -217,6 +251,28 @@ SSD_CHUNK = 64
 # xlstm-350m: 1024-token prompts; mLSTM heads 4 of 2048 / 4 = 512, the
 # chunk of apply_mlstm_block; a ragged length for the final-state check
 XL_PROMPT, XL_RAGGED, XL_HEADS, XL_P, MLSTM_CHUNK = 1024, 1000, 4, 512, 64
+
+# fleet serving plane ([fleet] (a)): olmo-1b at its published config, three
+# group models (seeds 0, 1, 2; the store's 4 fp32 rows hold 18.8 GB) and a
+# candidate (seed 3) offered to the first group's gate on an (8, 256)
+# sample (224 random tokens a row and the group's own 32-token greedy
+# continuation); 32 slots of 1024 positions (16 layers x 2 x 1024 x 2048 x 2 B a
+# slot: 4.3 GB of bf16 pool), 32 new tokens; 48 queries, 16 a group, with
+# prompts of 512 and 384 tokens in turn, so that lanes sit at two
+# positions in a tick and slots recycle. Transcripts are held to solo
+# decodes where the solo top-1 leads by more than FLEET_LEAD
+FLEET_SLOTS, FLEET_QUERIES, FLEET_PROMPTS = 32, 48, (512, 384)
+FLEET_SEEDS, FLEET_CANDIDATE, FLEET_SAMPLE = (0, 1, 2), 3, (8, 256)
+FLEET_LEAD = 1e-2
+# [fleet] (b): the fleet step at smoke width, card vs CPU: three groups,
+# seven lanes in a permuted subset of nine slots at staggered positions
+FLEET_ROWS = [0, 1, 2, 1, 0, 2, 1]
+FLEET_SMOKE_PROMPTS = [5, 9, 20, 14, 3, 30, 11]
+FLEET_SMOKE_SLOTS = [5, 0, 3, 6, 2, 8, 1]
+FLEET_SMOKE_CAP, FLEET_SMOKE_TICKS = 48, 3
+# fp32 logits, card vs CPU, at smoke width: the kernels' and the plain
+# versions' fp32 sums differ in order only
+FLEET_SMOKE_TOL = 1e-3
 
 # data-sheet peaks (dense): bytes/s of device memory, FLOP/s of bf16
 # tensor cores and of fp32 outside them; matched against nvidia-smi's name
@@ -434,7 +490,9 @@ def check_attention():
             (2, 4, 800, 600, 8, 2, 64, 100, None,
              "S 4 appended, window 100: splits before the first key"),
             (2, 6, 64, 3, 4, 2, 64, 0, split_attention_ref,
-             "S > T: rows without keys are 0")]:
+             "S > T: rows without keys are 0"),
+            (2, 1, 8256, 8192, 8, 1, 128, 0, None,
+             "MQA over 8192 keys: 128 splits in the combine")]:
         q = _randn((B, S, H, hd), bf16, gen)
         ck, cv = (_randn((B, cap, K, hd), bf16, gen) for _ in range(2))
         kp, vp = ck[:, :T], cv[:, :T]
@@ -489,7 +547,60 @@ def check_attention():
         serving.append(_attn_case(
             f"window eval fp32 ({rows},32,16,16,128) causal", q, k, v,
             "cuda_core"))
+    serving += check_attention_lengths(gen)
     return max(serving)
+
+
+def ragged_lengths(B, cap, gen):
+    """B per-lane key lengths spread from 1 to `cap` in a shuffled order,
+    int32 on the card: the fleet tick's lanes at their positions."""
+    n = torch.linspace(1, cap, B, device=DEV).round().to(torch.int32)
+    return n[torch.randperm(B, generator=gen, device=DEV)]
+
+
+def _lengths_case(name, q, k, v, lengths, path):
+    """flash_attention with per-lane `lengths` over the whole cache on the
+    path `plan` must pick, held to `attention_ref(lengths=)` (each lane
+    over its own prefix; a lane of length 0 is 0 in both)."""
+    pl = fa_plan(q, k, v)
+    assert pl.path == path, (name, pl.path, path)
+    return _check(f"{name} [{path}, {pl.splits} split(s) of {pl.split}]",
+                  flash_attention(q, k, v, lengths=lengths),
+                  attention_ref(q, k, v, lengths=lengths), TOL[q.dtype])
+
+
+def check_attention_lengths(gen):
+    """The fleet decode's attention: one call over the whole pool, each
+    lane with its own key length. olmo-1b's tick over a (32, 1024, 16, 128)
+    bf16 cache and hymba-1.5b's global layers over (32, 1184, 5, 64),
+    lengths ragged from 1 to the capacity (split-KV decode), fp32 q over
+    olmo's cache (CUDA-core kernel); then 4 lanes, where the splits are
+    several and some lie past a lane's length, with lanes of length 0 (pool
+    rows that hold no lane). Returns the errors."""
+    bf16 = torch.bfloat16
+    errs = []
+    for B, cap, H, K, hd, qdt, path, lengths, what in [
+            (FLEET_SLOTS, CAP, 16, 16, 128, bf16, "split_decode", None,
+             "olmo fleet tick"),
+            (FLEET_SLOTS, HY_CAP, 25, 5, 64, bf16, "split_decode", None,
+             "hymba fleet tick, global layers"),
+            (FLEET_SLOTS, CAP, 16, 16, 128, torch.float32, "cuda_core", None,
+             "olmo fleet tick, fp32 q"),
+            (4, CAP, 16, 16, 128, bf16, "split_decode", [0, 1, 700, CAP],
+             "splits past a lane's length"),
+            (4, HY_CAP, 25, 5, 64, bf16, "split_decode", [5, HY_CAP, 0, 129],
+             "GQA 25/5, splits past a lane's length"),
+            (4, CAP, 16, 16, 128, torch.float32, "cuda_core",
+             [0, 1, 700, CAP], "fp32 q, a lane of length 0")]:
+        q = _randn((B, 1, H, hd), qdt, gen)
+        ck, cv = (_randn((B, cap, K, hd), bf16, gen) for _ in range(2))
+        n = (ragged_lengths(B, cap, gen) if lengths is None else
+             torch.tensor(lengths, dtype=torch.int32, device=DEV))
+        errs.append(_lengths_case(
+            f"lengths {what}: q ({B},1,{H},{hd}) {str(qdt)[6:]} over bf16 "
+            f"cache ({B},{cap},{K},{hd}), lengths {int(n.min())}.."
+            f"{int(n.max())}", q, ck, cv, n, path))
+    return errs
 
 
 def _sass_counts(source):
@@ -2040,6 +2151,330 @@ def window_full_width():
 
 
 # ---------------------------------------------------------------------------
+# phase 6d: the fleet serving plane
+# ---------------------------------------------------------------------------
+def _solo_leads(model, params, prompt, tokens, cap):
+    """A solo `ServeLoop` of one slot on `params` (bf16 compute and pool)
+    driven through `tokens`, the fleet's transcript of `prompt`: per
+    emitted token the solo argmax and its lead over the second logit."""
+    loop = ServeLoop(model, params, num_slots=1, capacity=cap,
+                     max_new=len(tokens))
+    with torch.no_grad():
+        last, cache, pos = model.prefill(
+            loop.params, torch.as_tensor(prompt, device=DEV)[None],
+            loop.mgr.capacity)
+        loop.mgr.write_prefill(0, cache, pos)
+        logits = [last[0]]
+        for i, tok in enumerate(tokens[:-1]):
+            lg, _ = model.decode(loop.params,
+                                 torch.tensor([[tok]], device=DEV),
+                                 loop.mgr.cache, pos + i)
+            logits.append(lg[0, -1])
+    top2 = torch.stack(logits).float()[:, :model.cfg.vocab_size].topk(2)
+    lead = top2.values[:, 0] - top2.values[:, 1]
+    return top2.indices[:, 0].tolist(), lead.tolist()
+
+
+def fleet_full_width():
+    """[fleet] (a): olmo-1b at its published config served through
+    `FleetServePlane`: three groups seeded ungated, a candidate through
+    the gate, 48 queries in 32 slots. Counters set to 0 just before the
+    pump and read just after: each tick one flash_attention launch (and
+    one combine) per layer, 16, beside 16 per batched prefill. ms per tick,
+    lanes per tick, tokens/s, peak memory beside the store's bytes; one
+    profiled tick; one lane per group held to a solo decode of its row."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(ARCH)
+    vocab = cfg.vocab_size
+    layers = expected_launches(cfg, 0, 1)["flash_attention"]   # 16
+    # the earlier phases' planes hold their states in reference cycles,
+    # and a job's finalizer keeps its bank for one collection more
+    while gc.collect():
+        pass
+    torch.cuda.empty_cache()
+    print(f"[fleet] (a) device memory in use at the start: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine = SharedEngine(cfg, device=DEV)
+    plane = FleetServePlane(engine, ServeConfig(
+        num_slots=FLEET_SLOTS, capacity=CAP, max_new=MAX_NEW))
+    rng = np.random.default_rng(30)
+    groups = [f"g{s}" for s in FLEET_SEEDS]
+    t0 = time.perf_counter()
+    for gid, seed in zip(groups, FLEET_SEEDS):
+        d = plane.publish(gid, engine.model.init(seed=seed, device=DEV),
+                          rng.integers(0, vocab, size=FLEET_SAMPLE))
+        assert d.seeded and d.accepted, d
+    # the gate's held-out sample: random prompts that the first group's
+    # model continued greedily for MAX_NEW tokens (served by the plane),
+    # so that the incumbent's accuracy is not 0
+    rows, seq = FLEET_SAMPLE
+    prompts = rng.integers(0, vocab, size=(rows, seq - MAX_NEW))
+    for i, p in enumerate(prompts):
+        plane.enqueue(f"s{i}", groups[0], p)
+    plane.pump()
+    cont = plane.drain()
+    plane.window_report()
+    sample = np.concatenate([prompts, np.stack(
+        [cont[f"s{i}"] for i in range(rows)])], axis=1)
+    gate = plane.publish(groups[0], engine.model.init(
+        seed=FLEET_CANDIDATE, device=DEV), sample)
+    nb = plane.store.nbytes()
+    row_bytes = sum(x.numel() * 4 for x in tree_leaves(
+        plane.store.row(groups[0])))
+    print(f"[fleet] (a) {ARCH}: 3 groups seeded and the seed-"
+          f"{FLEET_CANDIDATE} candidate gated in {time.perf_counter() - t0:.1f}"
+          f"s: candidate acc {gate.candidate_acc!r} vs incumbent "
+          f"{gate.incumbent_acc!r} on an {FLEET_SAMPLE} sample -> "
+          f"{'accepted' if gate.accepted else 'rejected'}; store "
+          f"{plane.store.reg.capacity} fp32 rows {nb['rows'] / 1e9:.2f} GB "
+          f"+ bf16 copy {nb['compute'] / 1e9:.2f} GB, pool "
+          f"{sum(x.numel() * x.element_size() for x in tree_leaves(plane.mgr.cache)) / 1e9:.2f} GB")
+    assert nb["rows"] == plane.store.reg.capacity * row_bytes == 4 * row_bytes
+    # the incumbent hits its own continuation; the swap follows the rule
+    assert not gate.seeded and gate.incumbent_acc > 0, gate
+    assert gate.accepted == (gate.candidate_acc >= gate.incumbent_acc), gate
+    queries = [(f"q{i}", groups[i % 3],
+                rng.integers(0, vocab, size=FLEET_PROMPTS[(i // 3) % 2]))
+               for i in range(FLEET_QUERIES)]
+    for rid, gid, prompt in queries:
+        plane.enqueue(rid, gid, prompt)
+    torch.cuda.synchronize()
+    calls0 = plane.prefill_calls
+    reset_launches()
+    t0 = time.perf_counter()
+    ticks = plane.pump()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    prefills = plane.prefill_calls - calls0
+    rep = plane.window_report()
+    out = plane.drain()
+    assert sorted(out) == sorted(q[0] for q in queries), sorted(out)
+    for rid, toks in out.items():
+        assert len(toks) == MAX_NEW and all(0 <= t < vocab for t in toks), rid
+    per_tick = (launches["flash_attention"] - layers * prefills) / ticks
+    print(f"[fleet] (a) {ARCH}: {ticks} ticks, {prefills} batched prefills;"
+          f" launches {launches}: {per_tick:g} flash_attention launches per "
+          f"tick ({layers} layers), "
+          f"{launches['flash_attention_combine'] / ticks:g} combines per "
+          f"tick")
+    assert per_tick == layers
+    assert launches["flash_attention_combine"] == layers * ticks, launches
+    assert launches["flash_attention"] == layers * (prefills + ticks)
+    log = plane.tick_log[-ticks:]
+    lanes = [n for n, _ in log]
+    tick_ms = np.array([1e3 * t for _, t in log])
+    n_tok = sum(len(v) for v in out.values())
+    print(f"[fleet] (a) {ARCH}: ms per tick median {np.median(tick_ms):.3f}"
+          f" p99 {np.percentile(tick_ms, 99):.3f} min {tick_ms.min():.3f} "
+          f"max {tick_ms.max():.3f} (first includes warm-up); lanes per tick"
+          f" {min(lanes)}..{max(lanes)} (mean {np.mean(lanes):.1f}); "
+          f"{n_tok} tokens of {len(out)} queries in {wall:.3f}s: "
+          f"{n_tok / wall:.1f} tokens/s end to end ({rep['tokens']} decoded "
+          f"in ticks, qps {rep['qps']:.2f})")
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[fleet] (a) {ARCH}: peak device memory {peak / 1e9:.2f} GB "
+          f"beside the store's {(nb['rows'] + nb['compute']) / 1e9:.2f} GB")
+    # one profiled tick of a full pool at two positions
+    for i in range(FLEET_SLOTS):
+        plane.enqueue(f"p{i}", groups[i % 3],
+                      rng.integers(0, vocab, size=FLEET_PROMPTS[i % 2]))
+    plane.pump(max_ticks=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        plane.tick()
+        torch.cuda.synchronize()
+        tick_wall = 1e3 * (time.perf_counter() - ts)
+    busy, kernels = _device_busy_ms(prof)
+    if kernels:
+        print(f"[fleet] (a) profiled tick ({len(plane.mgr.active())} lanes "
+              f"after it): wall {tick_wall:.3f} ms, device busy {busy:.3f} "
+              f"ms, idle share {1 - busy / tick_wall:.3f}, {kernels} kernels")
+        for e in sorted(prof.key_averages(),
+                        key=lambda e: -e.device_time_total)[:6]:
+            print(f"[fleet]   {e.device_time_total / 1e3:8.3f} ms "
+                  f"x{e.count:<4} {e.key[:90]}")
+    else:
+        print("[fleet] (a) the profiler saw no device time; idle share not "
+              "measured")
+    plane.pump()
+    plane.drain()
+    plane.window_report()
+    # one lane per group against a solo decode of its serving row
+    decided = 0
+    for gid in groups:
+        rid, _, prompt = next(q for q in queries if q[1] == gid)
+        top, lead = _solo_leads(engine.model, plane.store.compute_row(gid),
+                                prompt, out[rid], CAP)
+        for step, (t, want, gap) in enumerate(zip(out[rid], top, lead)):
+            if gap > FLEET_LEAD:
+                assert t == want, (gid, rid, step, out[rid], top, lead)
+                decided += 1
+        print(f"[fleet] (a) {gid} {rid}: fleet transcript held to the solo "
+              f"decode at {sum(g > FLEET_LEAD for g in lead)} of {MAX_NEW} "
+              f"steps (smallest lead {min(lead):.4f})")
+    assert decided >= 3 * MAX_NEW // 2, decided
+    del plane, engine
+    while gc.collect():
+        pass
+    print(f"[fleet] (a) device memory in use after the plane: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    return launches["flash_attention"], launches["flash_attention_combine"]
+
+
+def _canon_decisions(history):
+    """Groups, shares and accuracies per window, job ids renamed by first
+    appearance."""
+    names = {}
+    out = []
+    for wm in history:
+        nm = {j: names.setdefault(j, f"g{len(names)}") for j in wm.groups}
+        out.append((wm.t, {nm[j]: sorted(m) for j, m in wm.groups.items()},
+                    {names.setdefault(j, f"g{len(names)}"): v
+                     for j, v in wm.shares.items()},
+                    {s: (None if math.isnan(a) else a)
+                     for s, a in wm.per_stream_acc.items()}))
+    return out, names
+
+
+def _canon_serve(history, names):
+    out = []
+    for wm in history:
+        s = {k: v for k, v in wm.serve.items() if k not in SERVE_TIMING}
+        s["staleness"] = {names[k]: v for k, v in s["staleness"].items()}
+        s["gate"] = [dict(g, group_id=names[g["group_id"]],
+                          incumbent_acc=(None if math.isnan(
+                              g["incumbent_acc"]) else g["incumbent_acc"]))
+                     for g in s["gate"]]
+        out.append(s)
+    return out
+
+
+def _fleet_pool(model, stack, dtype):
+    """FLEET_ROWS' lanes prefilled on the CPU by their groups' models into
+    FLEET_SMOKE_SLOTS of a pool of 9 slots. Returns (pool, tokens,
+    positions)."""
+    cap = FLEET_SMOKE_CAP + model.cfg.meta_tokens
+    pool = model.init_cache(9, cap, dtype, "cpu")
+    rng = np.random.default_rng(31)
+    toks, poss = [], []
+    for slot, r, n in zip(FLEET_SMOKE_SLOTS, FLEET_ROWS, FLEET_SMOKE_PROMPTS):
+        params = tree_map(lambda t, r=r: t[r], stack)
+        last, c, pos = model.prefill(
+            params, torch.as_tensor(rng.integers(0, 64, size=n))[None], cap,
+            compute_dtype=dtype)
+        for dst, src in zip(tree_leaves(pool), tree_leaves(c)):
+            dst[:, slot] = src[:, 0].to(dst.dtype)
+        toks.append(int(last[0].float().argmax()))
+        poss.append(int(pos))
+    return pool, toks, poss
+
+
+def fleet_step_smoke(arch):
+    """The fleet decode step at smoke width, card vs CPU, from one cache
+    prefilled on the CPU: FLEET_SMOKE_TICKS ticks teacher-forced on the
+    CPU's tokens, fp32 (logits within FLEET_SMOKE_TOL) and bf16 (tokens
+    equal where the CPU's top-1 leads by more than FLEET_LEAD);
+    flash_attention once per global layer per tick on the card."""
+    cfg = dataclasses.replace(smoke_config(arch), vocab_size=64)
+    model = build_model(cfg)
+    stack = tree_map(lambda *t: torch.stack(t),
+                     *[model.init(seed=s, device="cpu") for s in range(3)])
+    glob = sum(s.count for s in layer_plan(cfg)
+               if s.kind == "block" and s.window == 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        st = tree_map(lambda t: t.to(dtype), stack)
+        cpu_pool, toks, poss = _fleet_pool(model, st, dtype)
+        card_pool = tree_map(lambda t: t.to(DEV, copy=True), cpu_pool)
+        card_st = tree_map(lambda t: t.to(DEV), st)
+        worst, decided, compared, launches = 0.0, 0, 0, 0
+        for _ in range(FLEET_SMOKE_TICKS):
+            want, _ = fleet_decode_logits(model, st, FLEET_ROWS, toks,
+                                          cpu_pool, poss, FLEET_SMOKE_SLOTS,
+                                          compute_dtype=dtype)
+            before = flash_attention.launches
+            got, _ = fleet_decode_logits(model, card_st, FLEET_ROWS, toks,
+                                         card_pool, poss, FLEET_SMOKE_SLOTS,
+                                         compute_dtype=dtype)
+            launches += flash_attention.launches - before
+            w, g = want[:, 0, :64].float(), got[:, 0, :64].float().cpu()
+            worst = max(worst, float((w - g).abs().max()))
+            top2 = w.topk(2)
+            lead = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+            for a, (tw, tg, ld) in enumerate(zip(w.argmax(-1).tolist(),
+                                                 g.argmax(-1).tolist(),
+                                                 lead)):
+                compared += 1
+                if ld > FLEET_LEAD:
+                    assert tw == tg, (arch, dtype, a, lead)
+                    decided += 1
+            toks, poss = w.argmax(-1).tolist(), [p + 1 for p in poss]
+        print(f"[fleet] (b) {arch} smoke fleet step {str(dtype)[6:]}, card "
+              f"vs CPU over {FLEET_SMOKE_TICKS} ticks: largest logit gap "
+              f"{worst:.3e}; tokens equal at {decided} of {compared} lanes "
+              f"where the CPU's top-1 leads by more than {FLEET_LEAD:g}; "
+              f"flash_attention {launches} launches ({glob} global layer(s) "
+              f"x {FLEET_SMOKE_TICKS} ticks)")
+        assert launches == glob * FLEET_SMOKE_TICKS, launches
+        assert decided >= compared // 2, (decided, compared)
+        if dtype == torch.float32:
+            assert worst <= FLEET_SMOKE_TOL, worst
+
+
+def fleet_smoke():
+    """[fleet] (b): the window loop with serving on at smoke width from the
+    reference's initial weights in fp32 (the serving plane at its bf16
+    default), ecco on the golden scenario on the card and on the CPU, and
+    on the card with serving off: every window's decisions equal across the
+    three, the serve reports (but their clock readings) equal card vs CPU.
+    Then hymba and xlstm through the fleet step card vs CPU, and the
+    launcher's --fleet path and the serve_continuous example on the card."""
+    init = {0: load_params_npz(WINDOW_INIT)}
+    tcfg = TrainConfig(**WINDOW_FP32)
+    scfg = ServeConfig(num_slots=8, capacity=32, max_new=4, prompt_len=8,
+                       queries_per_stream=2)
+    runs = {}
+    for tag, dev, sc in (("card", DEV, scfg), ("cpu", torch.device("cpu"),
+                                               scfg), ("off", DEV, None)):
+        eng = wtrace.make_engine_for(wtrace.golden_scenario(), tcfg=tcfg,
+                                     init_params=init, device=dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        runs[tag] = wtrace.run_scenario(
+            "ecco", wtrace.golden_scenario(), engine=eng, seed=0, device=dev,
+            serve=sc, **wtrace.GOLDEN_CONTROLLER)
+        print(f"[fleet] (b) window loop ecco, serve "
+              f"{'on' if sc else 'off'}, on the {tag if sc else 'card'}: "
+              f"{time.perf_counter() - t0:.1f}s, flash_attention "
+              f"{flash_attention.launches} launches")
+    (card, names), (cpu, cnames), (off, _) = (
+        _canon_decisions(runs[k].history) for k in ("card", "cpu", "off"))
+    assert card == cpu == off, "serving moved a decision"
+    sc_card = _canon_serve(runs["card"].history, names)
+    sc_cpu = _canon_serve(runs["cpu"].history, cnames)
+    print(f"[fleet] (b) decisions equal card / CPU / serve off; serve "
+          f"reports card vs CPU {'equal' if sc_card == sc_cpu else 'DIFFER'}:"
+          f" queries {[s['queries'] for s in sc_card]}, gate "
+          f"{[[(g['group_id'], g['accepted']) for g in s['gate']] for s in sc_card]}")
+    assert sc_card == sc_cpu, (sc_card, sc_cpu)
+    assert sum(s["queries"] for s in sc_card) > 0
+    for arch in (HYMBA, XLSTM):
+        fleet_step_smoke(arch)
+    report = serve.main(["--fleet", "--requests", "6", "--max-new", "8",
+                         "--capacity", "64", "--prompt-len", "24"])
+    assert len(report["outputs"]) == 6 and report["report"]["swap_seeded"] == 2
+    ex = serve_continuous.main([])
+    assert len(ex["outputs"]) == 8 and ex["gate"].accepted, ex["gate"]
+    print(f"[fleet] (b) launcher --fleet and serve_continuous on the card: "
+          f"{report['ticks']} ticks; the retrained candidate "
+          f"{ex['gate'].candidate_acc:.3f} vs {ex['gate'].incumbent_acc:.3f},"
+          f" fidelity {ex['fidelity']:.2f}")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing
 # ---------------------------------------------------------------------------
 def _time_ms(fn, sets, iters=50, warmup=5):
@@ -2161,9 +2596,10 @@ def _attention_row(shape, sets, sdpa_sets, prefill, nbytes, flops, dtype,
 
 def time_attention(pk):
     """flash_attention at the four bf16 serving shapes (olmo and hymba,
-    prefill and decode) and the two fp32 ones (olmo prefill in fp32, and
-    fp32 q over olmo's bf16 cache), rotating 6-8 input sets so that L2
-    does not hold them. SDPA gets q, k, v in its (B, H, S, hd) layout,
+    prefill and decode), the two fp32 ones (olmo prefill in fp32, and
+    fp32 q over olmo's bf16 cache) and the fleet tick's two (olmo's and
+    hymba's 32 lanes over the whole pool with ragged lengths), rotating
+    6-8 input sets so that L2 does not hold them. SDPA gets q, k, v in its (B, H, S, hd) layout,
     hymba's k, v repeated to 25 heads and, for fp32 q, the bf16 cache
     widened to fp32, all beforehand. Bytes: q, k, v read once, o written
     once; operations: QK^T and PV over the visible (query, key) pairs."""
@@ -2199,12 +2635,55 @@ def time_attention(pk):
             False, 2 * SLOTS * H * hd * el + 2 * SLOTS * T * K * hd * 2,
             4 * SLOTS * H * T * hd, qdt, pk)
 
+    def ragged(name, cap, H, K, hd):
+        """The fleet tick's decode: FLEET_SLOTS lanes over the whole pool,
+        one set of ragged lengths for every input set. Bytes: q, o and
+        each lane's lengths[b] K/V rows; operations over those keys. SDPA
+        gets a boolean mask of each lane's keys."""
+        B = FLEET_SLOTS
+        n = ragged_lengths(B, cap, gen)
+        keys = int(n.sum())
+        sets = [(_randn((B, 1, H, hd), bf16, gen),
+                 _randn((B, cap, K, hd), bf16, gen),
+                 _randn((B, cap, K, hd), bf16, gen)) for _ in range(6)]
+        assert fa_plan(*sets[0]).path == "split_decode"
+        mask = (torch.arange(cap, device=DEV)[None] < n[:, None])[:, None,
+                                                                   None]
+        lib_sets = [tuple(t.repeat_interleave(H // K if i else 1, 2)
+                          .transpose(1, 2).contiguous()
+                          for i, t in enumerate(st)) for st in sets]
+
+        def kern(q, k, v):
+            return flash_attention(q, k, v, lengths=n)
+
+        def plain(q, k, v):
+            return attention_ref(q, k, v, lengths=n)
+
+        def lib(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        bound = _bound(2 * B * H * hd * 2 + 4 * B + 2 * keys * K * hd * 2,
+                       4 * H * keys * hd, bf16, pk)
+        rows[name] = dict(
+            shape=f"q ({B},1,{H},{hd}) bf16 over bf16 k,v ({B},{cap},{K},"
+                  f"{hd}), lengths {int(n.min())}..{int(n.max())} ({keys} "
+                  f"keys) [split_decode]",
+            path="split_decode", ms=_time_ms(kern, sets),
+            device_ms=_device_ms(kern, sets, FA_KERNELS["split_decode"],
+                                 bound_ms=bound[0]),
+            plain_ms=_time_ms(plain, sets, iters=10),
+            library_ms=_time_ms(lib, lib_sets),
+            library_device_ms=_device_ms(lib, lib_sets, bound_ms=bound[0]),
+            bound=bound)
+
     prefill("prefill", PROMPT, 16, 16, 128, bf16)
     decode("decode", DECODE_T, CAP, 16, 16, 128, bf16)
     prefill("hymba_prefill", HY_S, 25, 5, 64, bf16)
     decode("hymba_decode", HY_DECODE_T, HY_CAP, 25, 5, 64, bf16)
     prefill("prefill_fp32", PROMPT, 16, 16, 128, f32)
     decode("decode_fp32_q", DECODE_T, CAP, 16, 16, 128, f32)
+    ragged("decode_ragged", CAP, 16, 16, 128)
+    ragged("hymba_decode_ragged", HY_CAP, 25, 5, 64)
     for name, r in rows.items():
         _print_time(f"flash_attention {name}", r)
     return rows
@@ -2513,6 +2992,10 @@ def main():
     torch.cuda.empty_cache()
     window = phase(f"window {ARCH}", window_full_width)
     torch.cuda.empty_cache()
+    fleet = phase(f"fleet {ARCH}", fleet_full_width)
+    torch.cuda.empty_cache()
+    phase("fleet smoke", fleet_smoke)
+    torch.cuda.empty_cache()
     att = phase("time flash_attention", time_attention, pk)
     phase("sweep flash_attention plans", sweep_attention_plans)
     fd = phase("time fleet_drift", time_fleet_drift, pk, windows, refs)
@@ -2537,12 +3020,15 @@ def main():
                     hymba_prefill=att["hymba_prefill"],
                     hymba_decode=att["hymba_decode"],
                     prefill_fp32=att["prefill_fp32"],
-                    decode_fp32_q=att["decode_fp32_q"]),
+                    decode_fp32_q=att["decode_fp32_q"],
+                    decode_ragged=att["decode_ragged"],
+                    hymba_decode_ragged=att["hymba_decode_ragged"]),
              combine_launches=launches["flash_attention_combine"],
              hymba_launches=hymba["flash_attention"],
              hymba_combine_launches=hymba["flash_attention_combine"],
              train_eval_launches=train_eval,
              window_launches=window["flash_attention"],
+             fleet_launches=fleet[0], fleet_combine_launches=fleet[1],
              tensor_core_hmma=hmma),
         dict(_entry("fleet_drift", *src["fleet_drift"],
                     launches["fleet_drift"], err["fleet_drift"], fd),

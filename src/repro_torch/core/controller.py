@@ -21,16 +21,21 @@ equal seeds give equal tokens:
   4. Alg. 1 over the jobs (`ECCOAllocator.run_window`): the eval
      forwards through `flash_attention` on the card, the train steps on
      the autograd route;
-  5. regrouping (Alg. 2 `update_grouping`) on the members' window data;
-  6. per-stream accuracy on fresh draws (`eval_pairs`).
+  5. regrouping (Alg. 2 `update_grouping`) on the members' window data,
+     then the window's per-stream accuracy on fresh draws (`eval_pairs`);
+  6. with `cc.serve`, the serving plane (`serve.plane.FleetServePlane`):
+     each group's retrained params offered through the validation gate
+     (fp32 evals through `flash_attention`), then every grouped stream's
+     queries served from the committed snapshots (prefills and fleet
+     decode ticks through `flash_attention` with per-lane lengths). It
+     uses only data drawn above, so no decision moves.
 
 Accuracies leave the engine as Python floats, so the allocator's and
 the grouper's arithmetic runs in float64 as the reference's does.
 
-Not here yet, and refused loudly: the serving plane (`cc.serve`,
-ROADMAP.md queue 1 item 6), roofline budgets (`cc.roofline_budget`,
-`cc.cost_table`, item 5), and `mesh`, `elastic`, `stragglers` and `zoo`
-(items 5 and 9).
+Not here yet, and refused loudly: roofline budgets
+(`cc.roofline_budget`, `cc.cost_table`, ROADMAP.md queue 1 item 5), and
+`mesh`, `elastic`, `stragglers` and `zoo` (items 5 and 9).
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ from repro_torch.core.trainer import RetrainJob, SharedEngine
 from repro_torch.core.transmission import (FleetTransmissionPlane,
                                            ProfileTable, SamplingConfig)
 from repro_torch.data.streams import Stream
+from repro_torch.serve.plane import FleetServePlane, ServeConfig
 
 
 @dataclasses.dataclass
@@ -76,9 +82,15 @@ class ControllerConfig:
     # wall-clock budget (seconds) for one window's allocator loop: once
     # exceeded, leftover micro-windows are dropped. None = no deadline
     window_deadline: Optional[float] = None
+    # live serving plane. None = off (the default; golden traces never
+    # see it). When set, run_window step 6 publishes each group's freshly
+    # retrained params through the validation gate and serves every
+    # grouped stream's queries from the committed serving snapshots.
+    # Read-only w.r.t. the decision planes: it reuses the window's
+    # already-drawn data and consumes no rng
+    serve: Optional[ServeConfig] = None
     # not ported yet; a value other than None raises (see the module
     # docstring)
-    serve: Optional[object] = None
     roofline_budget: Optional[float] = None
     cost_table: Optional[object] = None
     # decision-plane screen precision for NEW jobs ("fp32" | "bf16");
@@ -98,9 +110,12 @@ class WindowMetrics:
     # tokens each grouped member actually ingested after §3.2
     # compression — always <= bandwidth * window_seconds / bytes_per_token
     delivered: Dict[str, int] = dataclasses.field(default_factory=dict)
-    # the serving plane's and the roofline meter's window reports in the
-    # reference; always None here (neither is ported yet)
+    # serving-plane window report (FleetServePlane.window_report): qps /
+    # tick latency / swap-gate counters / per-group staleness. None
+    # whenever ControllerConfig.serve is off
     serve: Optional[Dict] = None
+    # the roofline meter's window report in the reference; always None
+    # here (not ported yet)
     roofline: Optional[Dict] = None
 
 
@@ -121,8 +136,6 @@ class ECCOController:
         """`engine`'s device carries the fleet planes too: the drift
         screen and the signature shortlist run where the jobs do."""
         self.cc = cc or ControllerConfig()
-        if self.cc.serve is not None:
-            _refuse("the serving plane (ControllerConfig.serve)", "item 6")
         if self.cc.roofline_budget is not None \
                 or self.cc.cost_table is not None:
             _refuse("roofline-budgeted windows (ControllerConfig."
@@ -173,6 +186,8 @@ class ECCOController:
             device=engine.device)
         for s in self.streams:
             self.fleet.add_stream(s.stream_id)
+        self.serve_plane = (FleetServePlane(engine, self.cc.serve)
+                            if self.cc.serve is not None else None)
         self.t = 0.0
         self.history: List[WindowMetrics] = []
         self.request_time: Dict[str, float] = {}
@@ -367,14 +382,67 @@ class ECCOController:
         for s in self.streams:
             acc[s.stream_id] = got.get(s.stream_id, float("nan"))
 
+        # 6. live serving plane (off by default): validated hot swap of
+        # each group's serving snapshot, then this window's stream queries
+        # answered from the committed snapshots. Uses only data drawn
+        # above (window_data prompts, evs gate sets): no rng, no decision
+        serve_report = None
+        if self.serve_plane is not None:
+            serve_report = self._serve_window(window_data, evs)
+
         groups = {j.job_id: [m.stream_id for m in j.members]
                   for j in self.jobs}
         wm = WindowMetrics(t=t, per_stream_acc=acc, groups=groups,
                            shares=shares, bandwidth=bw,
-                           delivered=delivered)
+                           delivered=delivered, serve=serve_report)
         self.history.append(wm)
         self.t += cc.window_seconds
         return wm
+
+    def _serve_window(self, window_data: Dict[str, np.ndarray],
+                      evs: Dict[str, np.ndarray]) -> Dict:
+        """One serving pass (run_window step 6).
+
+        Swap protocol: every live group's freshly retrained params are
+        offered through the plane's validation gate against the group's
+        held-out set, up to `gate_members` members' metrics eval draws
+        (drawn at t + 0.5, never ingested for training). Candidate rows
+        follow the bank residency discipline
+        (`RetrainJob.serving_snapshot`: compact, sync, committed row
+        copy). Dead groups are pruned, then each grouped stream issues
+        `queries_per_stream` prompts sliced from the window data it
+        already transmitted, and the plane pumps the slot pool dry."""
+        sp = self.serve_plane
+        scfg = self.cc.serve
+        for j in self.jobs:
+            # the serve plane decodes with ITS engine's model; a job on
+            # another engine cannot publish its params there (shape
+            # mismatch); its streams keep the incumbent
+            if getattr(j, "engine", None) is not sp.engine:
+                continue
+            ms = [m for m in j.members if m.stream_id in evs]
+            ms = ms[:max(1, scfg.gate_members)]
+            if not ms:
+                continue
+            sample = np.concatenate(
+                [evs[m.stream_id] for m in ms])[:self.cc.eval_batch]
+            sp.publish(j.job_id, j.serving_snapshot(), sample)
+        sp.prune({j.job_id for j in self.jobs})
+        by_stream = self._jobs_by_stream()
+        w = len(self.history)
+        for s in self.streams:
+            j = by_stream.get(s.stream_id)
+            if j is None or j.job_id not in sp.store:
+                continue
+            toks = window_data.get(s.stream_id)
+            if toks is None or toks.shape[0] == 0:
+                continue
+            for q in range(scfg.queries_per_stream):
+                prompt = toks[q % toks.shape[0]][:scfg.prompt_len]
+                sp.enqueue(f"{s.stream_id}/w{w}q{q}", j.job_id, prompt)
+        sp.pump()
+        sp.drain()      # transcripts are per-window; keep memory bounded
+        return sp.window_report()
 
     def run(self, windows: int) -> List[WindowMetrics]:
         self.warmup()

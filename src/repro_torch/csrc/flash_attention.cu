@@ -52,6 +52,11 @@
 //    same call, rescales and sums the partials of each output row (a block
 //    per row, the loads over the splits independent); a row with no visible
 //    key in any split stays 0. Its arithmetic is `ref.combine_splits`.
+//    With per-lane key lengths (the fleet decode: lanes at different
+//    positions over one pool of `cap` rows), the splits cover [0, cap), a
+//    split past its lane's length returns at once, and the combine reads
+//    only the splits that cover [0, lengths[b]). The CUDA-core kernel
+//    takes the same lengths; the prefill refuses them.
 // 0. CUDA cores (fp32 q, fp32 q over a bf16 cache, and rows that are not
 //    16-byte multiples or not aligned): one block of 4 warps per (query
 //    tile, head, batch), K/V staged as fp32, fp32 FMAs. TF32 products
@@ -87,7 +92,16 @@ struct Params {
   int split, splits;
   float* part_o;
   float* part_ml;
+  // per-lane key lengths (B,) int32, or null: lane b sees keys t <
+  // lengths[b] only (clamped to [0, T]), its queries at the positions
+  // i + lengths[b] - S, the causal convention of ref.attention_ref per lane
+  const int* lengths;
 };
+
+// the keys lane b sees: lengths[b] clamped to [0, T], or T
+__device__ __forceinline__ int lane_keys(const Params& p, int b) {
+  return p.lengths ? min(max(p.lengths[b], 0), p.T) : p.T;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -122,7 +136,7 @@ __device__ __forceinline__ void unpack16(float* dst, uint4 raw,
 template <typename TKV, int HDP>
 __device__ __forceinline__ void load_kv_tile(float* Ks, float* Vs,
                                              const TKV* k, const TKV* v,
-                                             int t0, const Params& p,
+                                             int t0, int T, const Params& p,
                                              int tid) {
   constexpr int KST = HDP + 4;
   if (p.vec) {
@@ -137,7 +151,7 @@ __device__ __forceinline__ void load_kv_tile(float* Ks, float* Vs,
       for (int i = 0; i < kBatch; ++i) {
         const int idx = tid + (base + i) * kThreads;
         const int c = idx / CPR, d = (idx % CPR) * VEC, t = t0 + c;
-        const bool ok = t < p.T && d < p.hd;
+        const bool ok = t < T && d < p.hd;
         const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
         kr[i] = ok ? *reinterpret_cast<const uint4*>(k + t * p.k_st + d)
                    : zero;
@@ -156,7 +170,7 @@ __device__ __forceinline__ void load_kv_tile(float* Ks, float* Vs,
   }
   for (int idx = tid; idx < kBK * HDP; idx += kThreads) {
     const int c = idx / HDP, d = idx % HDP, t = t0 + c;
-    const bool ok = t < p.T && d < p.hd;
+    const bool ok = t < T && d < p.hd;
     Ks[c * KST + d] = ok ? to_f(k[t * p.k_st + d]) : 0.f;
     Vs[c * HDP + d] = ok ? to_f(v[t * p.v_st + d]) : 0.f;
   }
@@ -201,7 +215,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.H / p.K);
-  const int off = p.T - p.S;
+  const int T = lane_keys(p, b), off = T - p.S;
 
   const TQ* q = static_cast<const TQ*>(p.q) + b * p.q_sb + h * p.q_sh;
   const TKV* k = static_cast<const TKV*>(p.k) + b * p.k_sb + hk * p.k_sh;
@@ -215,9 +229,9 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
   // kv range this block can see: whole tiles outside it are never loaded
   const int rows = min(BQ, p.S - q0);
   const int qpos_first = q0 + off, qpos_last = q0 + rows - 1 + off;
-  int kv_lo = 0, kv_hi = p.T;
+  int kv_lo = 0, kv_hi = T;
   if (p.causal) {
-    kv_hi = min(p.T, qpos_last + 1);
+    kv_hi = min(T, qpos_last + 1);
     if (p.window > 0) kv_lo = max(0, qpos_first - p.window + 1);
   }
   kv_lo = (kv_lo / kBK) * kBK;
@@ -237,7 +251,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
 
   for (int t0 = kv_lo; t0 < kv_hi; t0 += kBK) {
     __syncthreads();  // the previous tile is consumed, the Q tile written
-    load_kv_tile<TKV, HDP>(Ks, Vs, k, v, t0, p, tid);
+    load_kv_tile<TKV, HDP>(Ks, Vs, k, v, t0, T, p, tid);
     __syncthreads();
     if (!active) continue;
 
@@ -265,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
 #pragma unroll
       for (int cc = 0; cc < 2; ++cc) {
         const int t = t0 + lane + 32 * cc;
-        bool vis = t < p.T;
+        bool vis = t < T;
         if (p.causal) {
           vis = vis && t <= qpos;
           if (p.window > 0) vis = vis && qpos - t < p.window;
@@ -419,8 +433,9 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-__device__ __forceinline__ bool visible(int t, int qpos, const Params& p) {
-  if (t >= p.T) return false;
+__device__ __forceinline__ bool visible(int t, int qpos, int T,
+                                        const Params& p) {
+  if (t >= T) return false;
   if (!p.causal) return true;
   return t <= qpos && (p.window <= 0 || qpos - t < p.window);
 }
@@ -633,7 +648,8 @@ __global__ void __launch_bounds__(kThreads* NG)
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (!visible(t0 + n * 8 + 2 * t4 + (e & 1), qp0 + (e >> 1) * 8, p))
+          if (!visible(t0 + n * 8 + 2 * t4 + (e & 1), qp0 + (e >> 1) * 8, p.T,
+                       p))
             s[n][e] = -INFINITY;
     }
     softmax_step<NT, NO>(s, m, l, o, sl2);
@@ -715,7 +731,11 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int G = p.H / p.K, R = p.S * G, off = p.T - p.S;
+  // a split past the lane's keys returns at once: the combine reads only
+  // the splits that cover [0, lengths[b])
+  const int T = lane_keys(p, b);
+  if (p.lengths && sp * p.split >= T) return;
+  const int G = p.H / p.K, R = p.S * G, off = T - p.S;
   const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb;
   const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
@@ -729,7 +749,7 @@ __global__ void __launch_bounds__(kThreads)
                ok);
   }
   // this split's keys, from the first tile that the first row can see
-  const int s_lo = sp * p.split, s_hi = min(p.T, s_lo + p.split);
+  const int s_lo = sp * p.split, s_hi = min(T, s_lo + p.split);
   int lo = s_lo;
   if (p.causal && p.window > 0) lo = max(lo, off - p.window + 1);
   lo = s_lo + ((lo - s_lo) / kTile) * kTile;
@@ -777,7 +797,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int t = t0 + warp * 16 + n * 8 + 2 * t4 + (e & 1);
-        if (!row_ok[e >> 1] || t >= s_hi || !visible(t, qpos[e >> 1], p))
+        if (!row_ok[e >> 1] || t >= s_hi || !visible(t, qpos[e >> 1], T, p))
           s[n][e] = -INFINITY;
       }
     softmax_step<2, NO>(s, m, l, o, sl2);
@@ -846,7 +866,13 @@ __global__ void __launch_bounds__(kThreads)
   const long long nrows = (long long)p.B * p.S * p.H;
   const long long row = blockIdx.x;
   const int tid = threadIdx.x;
-  for (int i = tid; i < p.splits; i += kThreads) {
+  const int h = (int)(row % p.H), s = (int)(row / p.H % p.S);
+  const int b = (int)(row / ((long long)p.H * p.S));
+  // with per-lane lengths only the splits that cover [0, lengths[b]) ran
+  const int n =
+      p.lengths ? min(p.splits, (lane_keys(p, b) + p.split - 1) / p.split)
+                : p.splits;
+  for (int i = tid; i < n; i += kThreads) {
     const float2 ml =
         *reinterpret_cast<const float2*>(p.part_ml + 2 * (i * nrows + row));
     w[2 * i] = ml.x;
@@ -854,22 +880,21 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   float M = -INFINITY, L = 0.f;
-  for (int i = 0; i < p.splits; ++i) M = fmaxf(M, w[2 * i]);
+  for (int i = 0; i < n; ++i) M = fmaxf(M, w[2 * i]);
   if (M != -INFINITY)
-    for (int i = 0; i < p.splits; ++i) L += w[2 * i + 1] * exp2f(w[2 * i] - M);
+    for (int i = 0; i < n; ++i) L += w[2 * i + 1] * exp2f(w[2 * i] - M);
   const float inv = L > 0.f ? 1.f / L : 0.f;
   __syncthreads();
-  for (int i = tid; i < p.splits; i += kThreads)
-    w[i] = M == -INFINITY ? 0.f : exp2f(w[2 * i] - M) * inv;
+  // each split's weight over its own m: no thread reads another's slot
+  for (int i = tid; i < n; i += kThreads)
+    w[2 * i] = M == -INFINITY ? 0.f : exp2f(w[2 * i] - M) * inv;
   __syncthreads();
-  const int h = (int)(row % p.H), s = (int)(row / p.H % p.S);
-  const int b = (int)(row / ((long long)p.H * p.S));
   bf16* out = static_cast<bf16*>(p.o) + b * p.o_sb + s * p.o_ss + h * p.o_sh;
   for (int d = tid; d < p.hd; d += kThreads) {
     const float* src = p.part_o + row * p.hd + d;
     float acc = 0.f;
 #pragma unroll 8
-    for (int i = 0; i < p.splits; ++i) acc += src[i * nrows * p.hd] * w[i];
+    for (int i = 0; i < n; ++i) acc += src[i * nrows * p.hd] * w[2 * i];
     out[d] = __float2bfloat16(acc);
   }
 }
@@ -941,7 +966,9 @@ cudaError_t attrs_hdp(int path, cudaFuncAttributes* a, int* dyn) {
 // groups of 4 warps per block, 2 = split-KV decode: `splits` splits of
 // `split` keys write their partials to part_o (splits, B S H, hd) and
 // part_ml (splits, B S H, 2), fp32, and a second launch combines them into
-// o. dtype codes: 0 = float32, 1 = bfloat16. Strides are in elements; the
+// o. `lengths`, null or (B,) int32 on the device: lane b sees keys t <
+// lengths[b] of the T a lane holds (paths 0 and 2; the prefill refuses it).
+// dtype codes: 0 = float32, 1 = bfloat16. Strides are in elements; the
 // last dim of every tensor is contiguous. Returns cudaGetLastError() of the
 // launch(es) (0 on success), or cudaErrorInvalidValue for what the path
 // does not take.
@@ -952,7 +979,7 @@ extern "C" int flash_attention_fwd(
     long long k_st, long long k_sh, long long v_sb, long long v_st,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     int causal, int window, int groups, int split, int splits,
-    void* part_o, void* part_ml, void* stream) {
+    void* part_o, void* part_ml, const void* lengths, void* stream) {
   const long long vec = kv_dtype == 0 ? 4 : 8;  // elements in 16 bytes
   const bool aligned =
       (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
@@ -964,7 +991,8 @@ extern "C" int flash_attention_fwd(
            q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb,
            o_ss, o_sh, causal, window, 1.0f / sqrtf((float)hd),
            aligned ? 1 : 0, split, splits,
-           static_cast<float*>(part_o), static_cast<float*>(part_ml)};
+           static_cast<float*>(part_o), static_cast<float*>(part_ml),
+           static_cast<const int*>(lengths)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == 0) {
     if (q_dtype == 0 && kv_dtype == 0) return launch_hd<float, float>(p, st);
@@ -980,7 +1008,7 @@ extern "C" int flash_attention_fwd(
                          splits >= 1 && splits <= 4096 &&
                          (long long)split * splits >= T && part_o && part_ml;
   if (q_dtype != 1 || kv_dtype != 1 || !aligned || !q_aligned || hd > 128 ||
-      !((path == 1 && (groups == 1 || groups == 2)) ||
+      !((path == 1 && !lengths && (groups == 1 || groups == 2)) ||
         (path == 2 && decode_ok)))
     return cudaErrorInvalidValue;
   if (hd <= 32) return launch_tc<32>(path, groups, p, st);

@@ -96,7 +96,7 @@ def _library():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
         attrs = lib.flash_attention_attrs
         attrs.restype = ctypes.c_int
         attrs.argtypes = [ctypes.c_int, ctypes.c_int,
@@ -145,26 +145,49 @@ def _check(q, k, v):
         raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def _check_lengths(q, k, v, lengths):
+    """`lengths` is a (B,) int32 tensor on q's device, and the call is a
+    decode: the prefill path takes no lengths."""
+    if lengths.device != q.device:
+        raise ValueError(f"lengths is on {lengths.device}, q on {q.device}")
+    if lengths.shape != (q.shape[0],) or lengths.dtype != torch.int32:
+        raise ValueError(f"lengths must be ({q.shape[0]},) int32; got "
+                         f"{tuple(lengths.shape)} {lengths.dtype}")
+    if plan(q, k, v).path == "prefill":
+        raise ValueError(
+            f"lengths is a decode's argument; q {tuple(q.shape)} over k "
+            f"{tuple(k.shape)} takes the prefill path, which has none")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    lengths=None):
     """q: (B, S, H, hd); k, v: (B, T, K, hd), H % K == 0, hd <= 128.
 
     Query i sits at absolute position i + (T - S) in the key space, as in
     `ref.attention_ref`. k and v may be strided views (a cache prefix);
     only their last dim must be contiguous. Returns (B, S, H, hd) in
     q.dtype. A row with no visible key is 0.
+
+    `lengths` ((B,) int32 on q's device; a decode's only: the prefill
+    path raises) gives each lane its own keys: lane b sees k[b, :lengths[b]]
+    and its query i sits at position i + lengths[b] - S. k and v are then
+    the whole cache (B, cap, K, hd), whose splits `plan` sizes by cap.
     """
     _build.refuse_grad("flash_attention", q, k, v)
+    if lengths is not None:
+        _check_lengths(q, k, v, lengths)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             lengths=lengths)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
     _check(q, k, v)
-    return _flash(q, k, v, causal, window, plan(q, k, v))
+    return _flash(q, k, v, causal, window, plan(q, k, v), lengths)
 
 
-def _flash(q, k, v, causal, window, p: Plan):
+def _flash(q, k, v, causal, window, p: Plan, lengths=None):
     """Launch plan `p` (as `plan` makes it; `chip_smoke.py` also times
-    others) on checked CUDA tensors."""
+    others) on checked CUDA tensors, with per-lane `lengths` or none."""
     B, S, H, hd = q.shape
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -185,6 +208,7 @@ def _flash(q, k, v, causal, window, p: Plan):
             k.shape[2], hd, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], int(causal), int(window),
             p.groups, p.split, p.splits, part_o, part_ml,
+            0 if lengths is None else lengths.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention {p.path} kernel launch "

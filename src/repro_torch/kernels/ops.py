@@ -49,12 +49,15 @@ def _unknown(op: str, impl: str, impls=("auto", "ref")):
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
-              impl: str = "auto"):
-    """Flash attention. q: (B,S,H,hd); k,v: (B,T,K,hd), H % K == 0."""
+              lengths=None, impl: str = "auto"):
+    """Flash attention. q: (B,S,H,hd); k,v: (B,T,K,hd), H % K == 0.
+    `lengths` ((B,) int32, a decode's): lane b sees keys t < lengths[b]."""
     if impl in ("ref", AUTOGRAD):
-        return _ref.attention_ref(q, k, v, causal=causal, window=window)
+        return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  lengths=lengths)
     if impl == "auto":
-        return _flash(q, k, v, causal=causal, window=window)
+        return _flash(q, k, v, causal=causal, window=window,
+                      lengths=lengths)
     raise _unknown("attention", impl, IMPLS)
 
 

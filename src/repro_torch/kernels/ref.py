@@ -16,15 +16,25 @@ NEG_INF = -1e30
 F32 = torch.float32
 
 
-def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                  lengths=None):
     """Materialized softmax attention with GQA.
 
     q: (B, S, H, hd); k, v: (B, T, K, hd) with H % K == 0.
     Query i sits at absolute position i + (T - S) in the key space.
     window > 0 limits key visibility to 0 <= qpos - j < window (causal
-    sliding window). Scores and softmax in fp32. Returns (B, S, H, hd)
-    in q.dtype.
+    sliding window). `lengths` ((B,) ints) masks each lane's keys: lane b
+    sees keys j < lengths[b], its query i at position i + lengths[b] - S.
+    That is this function over k[b, :lengths[b]], and it is computed so,
+    lane by lane, which makes each lane equal to it bit for bit (one
+    product over the whole cache would sum in another order). Scores and
+    softmax in fp32. Returns (B, S, H, hd) in q.dtype.
     """
+    if lengths is not None:
+        return torch.cat([
+            attention_ref(q[b:b + 1], k[b:b + 1, :n], v[b:b + 1, :n],
+                          causal=causal, window=window)
+            for b, n in enumerate(lengths.tolist())])
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K

@@ -11,15 +11,25 @@ using the slot-pool KV cache, on the GPU.
         --full --requests 8 --num-slots 4 --prompt-len 1024 --max-new 32 \
         --capacity 1056
 
+`--fleet` serves the same requests through the fleet serving plane
+instead (`repro_torch.serve.plane`): two group models from seeds 0 and 1
+published through the swap gate, a candidate from seed 2 offered to the
+first group, the requests alternating between the groups and decoded in
+shared ticks (one fleet-step call per tick for any group mix), and a
+window report with qps, tick percentiles and the gate's counters: the
+path `ControllerConfig.serve` drives inside `ECCOController.run_window`.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --fleet --full \
+        --requests 8 --num-slots 8 --prompt-len 512 --max-new 32 \
+        --capacity 1024
+
 `--capacity` is a request's prompt + generation budget; the pool adds the
 model's meta tokens (hymba: 128); xlstm-350m's recurrent cache does not
 grow with it, but admission still checks it. Without `--full` it serves the
 smoke-scale config (vocabulary capped at 256), as the JAX launcher does;
 `--full` serves the published config. It
 runs on CUDA unless `--device cpu` is given, and raises when CUDA is
-missing. Weights are random, drawn from `--seed`. The JAX launcher's
-`--fleet` path (two group models behind the swap gate) arrives with the
-serving plane (ROADMAP.md, queue 1).
+missing. Weights are random, drawn from `--seed`.
 """
 from __future__ import annotations
 
@@ -64,6 +74,45 @@ def _run_single(args, model, params, pending):
             "tick_s": tick_s, "decode_calls": loop.decode_calls}
 
 
+def _run_fleet(args, cfg, engine, pending):
+    """Two-group fleet serving with the validated hot swap."""
+    from repro_torch.serve.plane import FleetServePlane, ServeConfig
+
+    plane = FleetServePlane(engine, ServeConfig(
+        num_slots=args.num_slots, capacity=args.capacity,
+        max_new=args.max_new, prompt_len=args.prompt_len))
+    rng = np.random.default_rng(args.seed)
+    sample = rng.integers(0, cfg.vocab_size, size=(4, 16))
+    for g, seed in (("groupA", 0), ("groupB", 1)):
+        d = plane.publish(g, engine.model.init(seed=seed,
+                                               device=engine.device), sample)
+        print(f"seeded {g}: acc={d.candidate_acc:.3f}")
+    # a second publish rides the gate: accepted only if the candidate
+    # holds up on the held-out sample (ties accept at margin 0.0)
+    d = plane.publish("groupA", engine.model.init(seed=2,
+                                                  device=engine.device),
+                      sample)
+    print(f"swap groupA: cand={d.candidate_acc:.3f} "
+          f"inc={d.incumbent_acc:.3f} -> "
+          f"{'accepted' if d.accepted else 'rejected'}")
+
+    t0 = time.perf_counter()
+    for i, (rid, prompt) in enumerate(pending):
+        plane.enqueue(rid, ("groupA", "groupB")[i % 2], prompt)
+    ticks = plane.pump()
+    done = plane.drain()
+    rep = plane.window_report()
+    print(f"gate: seeded={rep['swap_seeded']} "
+          f"accepted={rep['swap_accepted']} "
+          f"rejected={rep['swap_rejected']}")
+    print(f"qps={rep['qps']:.1f} p50_tick={rep['p50_tick_ms']:.1f}ms "
+          f"p99_tick={rep['p99_tick_ms']:.1f}ms")
+    return {"outputs": done, "ticks": ticks,
+            "seconds": time.perf_counter() - t0, "report": rep,
+            "tick_log": list(plane.tick_log),
+            "prefill_calls": plane.prefill_calls}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="olmo-1b",
@@ -78,6 +127,9 @@ def main(argv=None):
                     help="torch device; 'cpu' must be asked for")
     ap.add_argument("--full", action="store_true",
                     help="serve the published config, full vocabulary")
+    ap.add_argument("--fleet", action="store_true",
+                    help="serve through the fleet plane (two group "
+                         "models, swap gate, shared ticks)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -95,9 +147,14 @@ def main(argv=None):
                                         size=args.prompt_len))
                for i in range(args.requests)]
 
-    model = build_model(cfg)
-    params = model.init(seed=args.seed, device=device)
-    report = _run_single(args, model, params, pending)
+    if args.fleet:
+        from repro_torch.core.trainer import SharedEngine
+        report = _run_fleet(args, cfg, SharedEngine(cfg, device=device),
+                            pending)
+    else:
+        model = build_model(cfg)
+        params = model.init(seed=args.seed, device=device)
+        report = _run_single(args, model, params, pending)
 
     done, dt = report["outputs"], report["seconds"]
     total_tokens = sum(len(v) for v in done.values())

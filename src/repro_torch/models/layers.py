@@ -18,6 +18,7 @@ such configs.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -207,22 +208,52 @@ def attention_windowed(cfg: ModelConfig, p, x, positions, *, window: int,
     return _out_proj(o, p["wo"], x.dtype), (k, v)
 
 
-def attention_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
+class Lanes(NamedTuple):
+    """Where each lane of a per-lane decode lives: `pos` (A,) int64, each
+    lane's absolute position; `slots` (A,) int64, each lane's batch row of
+    the cache; `lengths` (N,) int32 over the cache's N rows, pos + 1 at a
+    lane's row and 0 elsewhere, the keys each row of a global layer
+    attends to. Made once per decode call (`lanes`)."""
+    pos: torch.Tensor
+    slots: torch.Tensor
+    lengths: torch.Tensor
+
+
+def lanes(pos, slots=None, rows: Optional[int] = None) -> Lanes:
+    """`Lanes` for lanes at positions `pos` ((A,) int tensor), in cache
+    rows `slots` of a cache of `rows` rows (None: rows 0..A-1 of A)."""
+    if slots is None:
+        slots = torch.arange(pos.shape[0], device=pos.device)
+        rows = pos.shape[0]
+    lengths = torch.zeros(rows, dtype=torch.int32, device=pos.device)
+    lengths[slots] = (pos + 1).to(torch.int32)
+    return Lanes(pos, slots, lengths)
+
+
+def attention_decode(cfg: ModelConfig, p, x, cache, pos, *,
                      window: int, meta: int, kernel_impl: str = "auto"):
     """Single-token decode. x: (B,1,D); pos: absolute position of the new
-    token (meta tokens included). cache:
+    token (meta tokens included), an int for the whole batch or a (B,)
+    int tensor, one position per lane. cache:
       full   : {"k","v": (B,cap,K,hd)}                  — global layers
       sliding: {"k","v": (B,wcap,K,hd), "mk","mv": (B,meta,K,hd)}
 
     The new K/V row is written into the cache IN PLACE (the JAX version
     returns an updated copy): at `pos` of a full cache, at slot
-    pos % wcap of a ring. A full cache then attends through the kernel
-    over the prefix [:, :pos+1] with S=1, which is exactly the `t <= pos`
-    key mask of the JAX version. A ring attends, in plain PyTorch, to the
-    slots whose stored position (the last one <= pos congruent to the
+    pos % wcap of a ring. With an int `pos`, a full cache then attends
+    through the kernel over the prefix [:, :pos+1] with S=1, which is
+    exactly the `t <= pos` key mask of the JAX version; with per-lane
+    positions through the kernel over the whole cache with each lane's
+    own `lengths` (`decode_attend`). A ring attends, in plain PyTorch, to
+    the slots whose stored position (the last one <= pos congruent to the
     slot) is a non-meta position inside the window, and to the meta rows.
     Returns (out (B,1,D), cache).
     """
+    if torch.is_tensor(pos):
+        q, k, v = _qkv(cfg, p, x, pos[:, None])
+        o = decode_attend(q, k, v, cache, lanes(pos), window=window,
+                          meta=meta, kernel_impl=kernel_impl)
+        return _out_proj(o, p["wo"], x.dtype), cache
     B = x.shape[0]
     positions = torch.full((B, 1), pos, device=x.device)
     q, k, v = _qkv(cfg, p, x, positions)                 # k,v: (B,1,K,hd)
@@ -248,6 +279,45 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
         vv = torch.cat([cache["mv"], cv], dim=1)
     o = _gqa_out(torch.softmax(scores, dim=-1), vv, x.dtype)
     return _out_proj(o, p["wo"], x.dtype), cache
+
+
+def decode_attend(q, k, v, cache, ln: Lanes, *, window: int, meta: int,
+                  kernel_impl: str = "auto"):
+    """The attention of a per-lane decode, after the projections: write
+    each lane's new K/V row (q, k, v: (A,1,H|K,hd), RoPE applied) into its
+    cache row `ln.slots[a]` at its own position `ln.pos[a]` (slot
+    pos % wcap of a ring), one indexed write per leaf, and attend.
+
+    A global layer makes ONE attention call over the whole cache, each row
+    with its own `ln.lengths` (rows that hold no lane see no key and their
+    query is 0): the kernel on the card, its plain version on the CPU. A
+    ring attends in plain PyTorch, each lane's `stored` positions and key
+    mask built from its own position. Returns o (A,1,H,hd) in q.dtype."""
+    pos, slots = ln.pos, ln.slots
+    ck, cv = cache["k"], cache["v"]
+    if window <= 0:
+        ck[slots, pos] = k[:, 0].to(ck.dtype)
+        cv[slots, pos] = v[:, 0].to(cv.dtype)
+        qq = q.new_zeros((ck.shape[0],) + tuple(q.shape[1:]))
+        qq[slots] = q
+        return ops.attention(qq, ck, cv, causal=True, lengths=ln.lengths,
+                             impl=kernel_impl)[slots]
+
+    wcap = ck.shape[1]
+    ck[slots, torch.remainder(pos, wcap)] = k[:, 0].to(ck.dtype)
+    cv[slots, torch.remainder(pos, wcap)] = v[:, 0].to(cv.dtype)
+    kk, vv = ck[slots], cv[slots]
+    t = torch.arange(wcap, device=q.device)[None]
+    pp = pos[:, None]
+    stored = pp - torch.remainder(pp - t, wcap)            # (A, wcap)
+    key_mask = (stored >= meta) & (stored <= pp) & (stored > pp - wcap)
+    scores = torch.where(key_mask[:, None, None, :], _gqa_scores(q, kk),
+                         NEG_INF)
+    if meta > 0:
+        scores = torch.cat([_gqa_scores(q, cache["mk"][slots]), scores],
+                           dim=-1)
+        vv = torch.cat([cache["mv"][slots], vv], dim=1)
+    return _gqa_out(torch.softmax(scores, dim=-1), vv, q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,7 @@ class Model:
                          compute_dtype=compute_dtype,
                          cache_dtype=cache_dtype, kernel_impl=kernel_impl)
 
-    def decode(self, params, token, cache, pos: int, *,
+    def decode(self, params, token, cache, pos, *,
                compute_dtype=torch.bfloat16, kernel_impl: str = "auto"):
         return T.decode_step(self.cfg, params, token, cache, pos,
                              compute_dtype=compute_dtype,

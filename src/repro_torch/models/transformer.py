@@ -249,7 +249,7 @@ def _block_forward(cfg: ModelConfig, p, x, positions, *, window: int,
     return x + L.apply_mlp(cfg, p["mlp"], h2), cache
 
 
-def _block_decode(cfg: ModelConfig, p, x, cache, pos: int, *, window: int,
+def _block_decode(cfg: ModelConfig, p, x, cache, pos, *, window: int,
                   kernel_impl: str):
     h = L.apply_norm(cfg, p["ln1"], x)
     attn_out, _ = L.attention_decode(cfg, p["attn"], h, cache, pos,
@@ -394,11 +394,14 @@ def _prefill_recurrent(cfg: ModelConfig, params, inputs, *, compute_dtype,
     return logits[:, -1], {"segments": segs}, inputs.shape[1]
 
 
-def decode_step(cfg: ModelConfig, params, token, cache, pos: int, *,
+def decode_step(cfg: ModelConfig, params, token, cache, pos, *,
                 compute_dtype=torch.bfloat16, kernel_impl: str = "auto"):
     """One-token decode. token: (B,1) int; pos: absolute position of the
-    token (meta tokens included; the xLSTM family does not read it). The
-    cache is updated in place.
+    token (meta tokens included; the xLSTM family does not read it), an
+    int for the batch or a (B,) int tensor on the device, one per lane:
+    each lane then takes its own RoPE position, writes its K/V row at its
+    own position and attends to its own prefix (`layers.decode_attend`).
+    The cache is updated in place.
     Returns (logits (B,1,V), cache)."""
     x = L.embed_tokens(params["embed"], token, compute_dtype)
     for seg, segp, segc in zip(layer_plan(cfg), params["segments"],

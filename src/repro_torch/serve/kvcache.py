@@ -34,6 +34,7 @@ class SlotState:
     request_id: Optional[str] = None
     pos: int = 0                 # absolute position of the next token
     done: bool = True
+    group: Optional[str] = None  # serving-group tag (fleet plane)
 
 
 class CacheManager:
@@ -72,14 +73,15 @@ class CacheManager:
         return [i for i, s in enumerate(self.slots) if s.done]
 
     def admit(self, request_id: str, *, prompt_len: Optional[int] = None,
-              max_new: int = 1) -> int:
+              max_new: int = 1, group: Optional[str] = None) -> int:
         if prompt_len is not None:
             self.check_fit(prompt_len, max_new)
         free = self.free_slots()
         if not free:
             raise RuntimeError("cache pool exhausted")
         i = free[0]
-        self.slots[i] = SlotState(request_id=request_id, pos=0, done=False)
+        self.slots[i] = SlotState(request_id=request_id, pos=0, done=False,
+                                  group=group)
         return i
 
     def release(self, slot: int):
@@ -87,15 +89,28 @@ class CacheManager:
 
     def write_prefill(self, slot: int, slot_cache, pos: int):
         """Copy a single-request prefill cache (batch dim 1) into the pool
-        at `slot`, leaf by leaf (K/V, ring, meta rows, Mamba conv and
-        state, xLSTM states and conv rows, in the cache spec's key order,
-        which the prefill cache keeps), each cast to its pool leaf's
-        dtype. (The JAX module's batched
-        `write_prefill_many` arrives with the fleet serving plane.)"""
-        for dst, src in zip(tree_leaves(self.cache), tree_leaves(slot_cache),
-                            strict=True):
-            dst[:, slot] = src[:, 0].to(dst.dtype)
-        self.slots[slot].pos = int(pos)
+        at `slot`."""
+        self.write_prefill_many([slot], slot_cache, pos)
+
+    def write_prefill_many(self, slots: List[int], batch_cache, pos: int):
+        """Copy a batched prefill cache (batch dim >= len(slots); lanes
+        past len(slots) are dropped) into the pool at `slots`, one write
+        per leaf for the whole admission wave (K/V, ring, meta rows, Mamba
+        conv and state, xLSTM states and conv rows, in the cache spec's
+        key order, which the prefill cache keeps), each cast to its pool
+        leaf's dtype. Contiguous slots are written through a slice."""
+        n = len(slots)
+        lo = slots[0]
+        if slots == list(range(lo, lo + n)):
+            sel = slice(lo, lo + n)
+        else:
+            sel = torch.as_tensor(slots, device=tree_leaves(self.cache)[0]
+                                  .device)
+        for dst, src in zip(tree_leaves(self.cache),
+                            tree_leaves(batch_cache), strict=True):
+            dst[:, sel] = src[:, :n].to(dst.dtype)
+        for i in slots:
+            self.slots[i].pos = int(pos)
 
     def active(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if not s.done]
@@ -107,21 +122,27 @@ class CacheManager:
 class ServeLoop:
     """Batched continuous serving driver: admit -> prefill -> decode ticks
     over the slot pool, retiring requests at EOS/limit. Runs on the device
-    the parameters lie on."""
+    the parameters lie on. `params` None (the fleet plane, whose params
+    are per group) takes the `device` given instead; `cache_dtype` is the
+    pool's (bf16, as the JAX pool's)."""
 
     def __init__(self, model: Model, params, *, num_slots: int = 8,
                  capacity: int = 256, eos_id: Optional[int] = None,
-                 max_new: int = 32, compute_dtype=torch.bfloat16):
+                 max_new: int = 32, compute_dtype=torch.bfloat16,
+                 cache_dtype=torch.bfloat16, device=None):
         from repro_torch.serve.serve_step import make_decode_step, \
             make_prefill_step
         self.model = model
         # Serving weights are stored once in the compute dtype: every op
         # casts its weights to the compute dtype anyway, so the values are
         # identical and no decode step re-casts the whole model.
-        self.params = tree_map(lambda t: t.to(compute_dtype), params)
-        self.device = tree_leaves(params)[0].device
+        self.params = None if params is None else tree_map(
+            lambda t: t.to(compute_dtype), params)
+        self.device = (torch.device(device) if params is None
+                       else tree_leaves(params)[0].device)
         self.mgr = CacheManager(model, num_slots=num_slots,
-                                capacity=capacity, device=self.device)
+                                capacity=capacity, dtype=cache_dtype,
+                                device=self.device)
         self.eos_id = eos_id
         self.max_new = max_new
         self.outputs: Dict[str, List[int]] = {}

@@ -28,6 +28,7 @@ from repro.testing import trace as JT  # noqa: E402
 from repro_torch.core.baselines import FRAMEWORKS  # noqa: E402
 from repro_torch.core.controller import ControllerConfig  # noqa: E402
 from repro_torch.models.convert import load_params_npz  # noqa: E402
+from repro_torch.serve.plane import ServeConfig  # noqa: E402
 from repro_torch.testing import trace as T  # noqa: E402
 from repro_torch.testing.invariants import (InvariantChecker,  # noqa: E402
                                             InvariantViolation)
@@ -101,7 +102,8 @@ def test_kernel_routes_give_the_exact_trace(engine):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(cc=ControllerConfig(serve=object())), "item 6"),
+    (dict(cc=ControllerConfig(serve=ServeConfig(), roofline_budget=1.0)),
+     "item 5"),
     (dict(cc=ControllerConfig(roofline_budget=1.0)), "item 5"),
     (dict(cc=ControllerConfig(cost_table=object())), "item 5"),
     (dict(mesh=object()), "item 9"),
