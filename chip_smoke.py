@@ -93,7 +93,9 @@ Phases, in order; the script exits non-zero at the first failure:
    pairwise_js once per grouping request that met a job. (b) The four
    goldens at their own configuration (bf16 compute) on the card: each
    framework's `compare` differences against tests/golden/, counted, not
-   asserted. (c) olmo-1b at full width (its vocabulary cut to the
+   asserted, with cuBLAS's reduced-precision bf16 reductions on and off;
+   the first float of ecco's window 0 that parts card vs CPU; the CPU's
+   instruction set and the torch and jax versions. (c) olmo-1b at full width (its vocabulary cut to the
    scenario's 64), random weights, bf16 compute, ecco with the kernel
    routes, a JobBank of 4 rows, invariants on: ms, micro-windows and
    tokens trained per window, each kernel's launches against the count
@@ -121,6 +123,24 @@ Phases, in order; the script exits non-zero at the first failure:
    logits within FLEET_SMOKE_TOL, bf16 tokens where the CPU's top-1
    leads); `launch.serve --fleet` and `examples.serve_continuous` on the
    card.
+6e. Roofline-metered windows, run between 6c and 6d (`[meter]`;
+   `repro_torch.launch.roofline` and the controller's metering). (a) The
+   golden scenario under ecco at
+   smoke width with the zoo-big / zoo-small tiers of
+   benchmarks/bench_heterogeneity.py, bf16 screens with an fp32 rescore
+   margin, a budget that puts the first job on zoo-big and later ones
+   on zoo-small, priced with the tests' fixed-seconds table and with the
+   H100 CostTable, card vs CPU: groups, events, tiers and the roofline
+   reports equal, the bf16 screens' accuracies within 0.01. (b) olmo-1b at its published config (vocabulary 64)
+   with xlstm-350m at its published config as the zoo tier, bf16
+   screens, the H100 CostTable, 3 windows: per window the modeled
+   ledger beside the measured ms, micro-windows and tokens trained, the
+   tiers, the fp32 rescores, launches of flash_attention (olmo's evals),
+   mlstm_scan (xlstm's), fleet_drift and pairwise_js equal to their
+   reckoning, peak memory beside the banks' bytes; beside (c)'s
+   unmetered fp32 windows; each tier's eval forwards held to the plain
+   route once, in the first window it has live jobs. (c) `repro_torch.launch.train.main` on the
+   card at smoke scale for 2 windows.
 7. Time each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls) at the
    serving shapes, with CUDA events after warm-up, rotating input buffers
@@ -135,7 +155,9 @@ Phases, in order; the script exits non-zero at the first failure:
    counts the training phase's eval launches, the full-width fleet
    pump's as `fleet_launches` and `fleet_combine_launches`;
    flash_attention's, fleet_drift's and pairwise_js's the full-width
-   window loop's as `window_launches`), the nvidia-smi line again,
+   window loop's as `window_launches`, and with mlstm_scan's the
+   full-width metered windows' as `meter_launches`), the nvidia-smi line
+   again,
    and as the last line `{"ok": true, "device": {...}}`.
 
 Every phase prints its seconds (`[phase]`).
@@ -150,6 +172,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -197,7 +220,8 @@ from repro_torch.kernels.fleet_drift import SOURCE as FD_SOURCE  # noqa: E402
 from repro_torch.kernels.fleet_drift import fleet_drift  # noqa: E402
 from repro_torch.kernels.mlstm_scan import SOURCE as ML_SOURCE  # noqa: E402
 from repro_torch.kernels.mlstm_scan import (  # noqa: E402
-    TENSOR_CORE as ML_TENSOR_CORE, mlstm_scan, plan as ml_plan)
+    CUDA_CORE as ML_CUDA_CORE, TENSOR_CORE as ML_TENSOR_CORE, mlstm_scan,
+    plan as ml_plan)
 from repro_torch.kernels.pairwise_js import SOURCE as PJ_SOURCE  # noqa: E402
 from repro_torch.kernels.pairwise_js import pairwise_js  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
@@ -346,6 +370,7 @@ WINDOW_FP32 = dict(learning_rate=1e-3, b2=0.999, weight_decay=0.0,
 WINDOW_BANK = 4
 WINDOW_ACC_GAP = 1e-4       # (a): card vs CPU per-stream accuracies
 WINDOW_KERNELS = (flash_attention, fleet_drift, pairwise_js)
+WINDOW_MS = []              # (c)'s windows, for [meter]'s comparison
 
 
 def nvidia_smi() -> str:
@@ -432,7 +457,8 @@ def check_attention():
     queries with a window, so splits before the first visible key), then
     the serving shapes, the training plane's eval shapes (fp32 on the
     CUDA-core kernel, bf16 on the tensor-core prefill) and the window
-    loop's (fp32). Returns the largest error at those shapes."""
+    loop's (fp32; the metered window's bf16 screens and fp32 rescores).
+    Returns the largest error at those shapes."""
     gen = torch.Generator(device=DEV).manual_seed(0)
     sweep = [(1, 128, 128, 4, 4, 64), (2, 64, 64, 4, 2, 32),
              (1, 96, 96, 8, 1, 64), (1, 32, 128, 4, 2, 64)]
@@ -538,15 +564,19 @@ def check_attention():
         serving.append(_attn_case(
             f"train-plane eval {str(dtype)[6:]} (64,{TRAIN_SEQ},16,16,128) "
             f"causal", q, k, v, path))
-    # the window loop's evals: 8 members flattened into one forward of
-    # the scenario's 32 tokens, 16 or 8 rows a member, fp32 on the
-    # CUDA-core kernel
-    for rows in (128, 64):
-        q, k, v = (_randn((rows, 32, 16, 128), torch.float32, gen)
+    # the window loop's evals: up to 8 members flattened into one forward
+    # of the scenario's 32 tokens, 16 or 8 rows a member, fp32 on the
+    # CUDA-core kernel; the metered window's bf16 screens on the
+    # tensor-core prefill at those shapes, and its fp32 rescores of one
+    # member, 16 or 8 rows, on the CUDA-core kernel
+    for rows, dtype in itertools.product((128, 64, 16, 8),
+                                         (torch.float32, bf16)):
+        path = "cuda_core" if dtype == torch.float32 else "prefill"
+        q, k, v = (_randn((rows, 32, 16, 128), dtype, gen)
                    for _ in range(3))
         serving.append(_attn_case(
-            f"window eval fp32 ({rows},32,16,16,128) causal", q, k, v,
-            "cuda_core"))
+            f"window eval {str(dtype)[6:]} ({rows},32,16,16,128) causal",
+            q, k, v, path))
     serving += check_attention_lengths(gen)
     return max(serving)
 
@@ -792,8 +822,10 @@ def check_mlstm():
     shape in fp32 against the oracle. Then in bf16 the tensor-core path's
     128-step tile, which chunks of 65 to 128 steps take (the kernel's
     default chunk is 128): chunk 128 at S = 1024, and chunk 96 at the
-    ragged S = 1000, its state also against the oracle. Returns the
-    largest error at the prefill shape, bf16, chunk 64."""
+    ragged S = 1000, its state also against the oracle. Last, the
+    metered window's eval shapes (B, 32, 4, 512), B 128, 64, 16 and 8 in
+    both dtypes. Returns the largest error at the prefill
+    shape, bf16, chunk 64."""
     gen = torch.Generator(device=DEV).manual_seed(8)
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, H, P, chunk in [(1, 64, 2, 32, 16), (2, 96, 3, 16, 32),
@@ -832,6 +864,23 @@ def check_mlstm():
         for leaf, a, w in zip("Cnm", st, rst):
             _check(f"{name} state {leaf} vs token-by-token oracle", a, w,
                    TOL[dtype])
+    # the metered window's xlstm-350m evals: up to 8 members flattened
+    # into one forward of the scenario's 32 tokens at apply_mlstm_block's
+    # chunk (one chunk of 32 steps), bf16 screens on the tensor cores and
+    # fp32 rescores of one member on the CUDA cores
+    for B, dtype in itertools.product((128, 64, 16, 8),
+                                      (bf16, torch.float32)):
+        shape = (B, 32, XL_HEADS, XL_P)
+        args = _mlstm_inputs(*shape, dtype, gen)
+        assert ml_plan(*args[:3], min(MLSTM_CHUNK, 32)) == (
+            ML_TENSOR_CORE if dtype == bf16 else ML_CUDA_CORE)
+        h, st = mlstm_scan(*args, chunk=MLSTM_CHUNK, return_state=True)
+        wh, wst = mlstm_chunked(*args, chunk=MLSTM_CHUNK, return_state=True)
+        name = (f"mlstm_scan metered eval {str(dtype)[6:]} {shape} "
+                f"chunk{MLSTM_CHUNK}")
+        _check(f"{name} h", h, wh, TOL[dtype])
+        for leaf, a, w in zip("Cnm", st, wst):
+            _check(f"{name} state {leaf}", a, w, TOL[dtype])
     return max(errs)
 
 
@@ -1912,15 +1961,35 @@ def window_smoke():
     assert got["pairwise_js"] == want_js > 0, (got, want_js)
 
 
-def window_goldens():
-    """(b) The four benign goldens at their own configuration (the
-    engine's default bf16 compute over fp32 masters) on the card, from the
-    reference's initial weights: each framework's number of `compare`
-    differences against tests/golden/trace_<fw>.json and the first, not
-    asserted (the goldens' floats follow the reference's bf16 rounding)."""
-    eng = wtrace.make_engine_for(
-        wtrace.golden_scenario(),
-        init_params={0: load_params_npz(WINDOW_INIT)}, device=DEV)
+def _cpu_isa() -> str:
+    """The host CPU's model and its bf16 / AVX-512 / AMX features."""
+    model, flags = "?", set()
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name") and model == "?":
+                    model = line.split(":", 1)[1].strip()
+                elif line.startswith("flags") and not flags:
+                    flags = set(line.split(":", 1)[1].split())
+    except OSError:
+        pass
+    keep = sorted(f for f in flags if f.startswith(("avx512", "amx"))
+                  or f in ("avx2", "avx_vnni", "fma"))
+    return (f"{model}; torch CPU capability "
+            f"{torch.backends.cpu.get_cpu_capability()}; {' '.join(keep)}")
+
+
+def _package_version(name: str) -> str:
+    """An installed package's version, read from its metadata without
+    importing it (the port never imports jax)."""
+    import importlib.metadata
+    try:
+        return importlib.metadata.version(name)
+    except importlib.metadata.PackageNotFoundError:
+        return "not installed"
+
+
+def _golden_diffs(eng):
     out = {}
     for fw in wtrace.GOLDEN_FRAMEWORKS:
         got = wtrace.golden_trace(fw, eng, device=DEV)
@@ -1928,11 +1997,87 @@ def window_goldens():
             os.path.join(HERE, "tests", "golden"), fw)))
         structural = [d for d in diffs if ".groups" in d or ".events" in d
                       or "count" in d or "meta" in d]
-        print(f"[window] (b) {fw} bf16 vs tests/golden/trace_{fw}.json: "
-              f"{len(diffs)} diffs ({len(structural)} structural)"
-              + (f"; first: {diffs[0]}" if diffs else ""))
-        out[fw] = len(diffs)
+        out[fw] = (len(diffs), len(structural), diffs[:1])
     return out
+
+
+def _window0_floats(dev):
+    """ecco's window 0 at the golden configuration (bf16 compute) from the
+    reference's initial weights on `dev`: in order, each micro-window's
+    losses and each eval forward's hits, as host arrays."""
+    eng = wtrace.make_engine_for(
+        wtrace.golden_scenario(),
+        init_params={0: load_params_npz(WINDOW_INIT)}, device=dev)
+    recs = []
+    hits, train = eng._forward_hits, eng.train_micro_many
+
+    def rec_hits(params, toks, precision):
+        h = hits(params, toks, precision)
+        recs.append((f"eval hits {tuple(toks.shape)} {precision}",
+                     h.cpu().numpy()))
+        return h
+
+    def rec_train(jobs):
+        mets = train(jobs)
+        recs.extend(("micro-window losses", m["loss"].float().cpu().numpy())
+                    for m in mets.values())
+        return mets
+    eng._forward_hits, eng.train_micro_many = rec_hits, rec_train
+    wtrace.run_scenario("ecco", wtrace.golden_scenario(), engine=eng,
+                        windows=1, device=dev, **wtrace.GOLDEN_CONTROLLER)
+    return recs
+
+
+def window_goldens():
+    """(b) The four benign goldens at their own configuration (the
+    engine's default bf16 compute over fp32 masters) on the card, from the
+    reference's initial weights: each framework's number of `compare`
+    differences against tests/golden/trace_<fw>.json and the first, not
+    asserted (the goldens' floats follow the reference's bf16 rounding),
+    with cuBLAS's reduced-precision bf16 reductions allowed (PyTorch's
+    default) and refused; then the first float of ecco's window 0 (a
+    micro-window's losses or an eval's hits, in order) that parts between
+    the card and the CPU; and the environment of both."""
+    print(f"[window] (b) environment: CPU {_cpu_isa()}; torch "
+          f"{torch.__version__}, jax {_package_version('jax')}")
+    eng = wtrace.make_engine_for(
+        wtrace.golden_scenario(),
+        init_params={0: load_params_npz(WINDOW_INIT)}, device=DEV)
+    matmul = torch.backends.cuda.matmul
+    default = matmul.allow_bf16_reduced_precision_reduction
+    out = {}
+    try:
+        for reduced in (True, False):
+            matmul.allow_bf16_reduced_precision_reduction = reduced
+            got = _golden_diffs(eng)
+            for fw, (n, st, first) in got.items():
+                print(f"[window] (b) {fw} bf16 vs tests/golden/trace_{fw}"
+                      f".json, reduced-precision bf16 reductions "
+                      f"{'on' if reduced else 'off'}: {n} diffs ({st} "
+                      f"structural)" + (f"; first: {first[0]}" if first
+                                        else ""))
+            out[reduced] = {fw: v[0] for fw, v in got.items()}
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = default
+    print(f"[window] (b) diff counts (ecco, naive, ekya, recl): reduced "
+          f"on {list(out[True].values())}, off {list(out[False].values())}")
+    card, cpu = _window0_floats(DEV), _window0_floats(torch.device("cpu"))
+    for i, ((kc, ac), (kp, ap)) in enumerate(zip(card, cpu)):
+        if kc != kp or ac.shape != ap.shape or not np.array_equal(ac, ap):
+            where = (np.argwhere(ac != ap)[0].tolist()
+                     if ac.shape == ap.shape else "shape")
+            pick = tuple(where) if isinstance(where, list) else ()
+            print(f"[window] (b) ecco window 0: the first float that parts "
+                  f"card vs CPU is record {i} of {len(card)} ({kc}) at "
+                  f"{where}: card {ac[pick]!r}, CPU {ap[pick]!r}"
+                  + (f"; losses card {ac.tolist()} CPU {ap.tolist()}"
+                     if kc.startswith("micro") else
+                     f"; {int((ac != ap).sum())} of {ac.size} hits differ"))
+            break
+    else:
+        print(f"[window] (b) ecco window 0: card and CPU equal in all "
+              f"{len(card)} records (micro-window losses, eval hits)")
+    return out[True]
 
 
 def _window_gemm_rate(cfg, shapes, prof):
@@ -1968,15 +2113,16 @@ def _window_gemm_rate(cfg, shapes, prof):
               f"{e.key[:90]}")
 
 
-def _window_evals_held(engine, ctl):
-    """One eval_jobs call over the window loop's live jobs at the loop's
-    shapes and precision, every forward through flash_attention held to
-    the plain route on the same params and rows: the largest logit
-    difference within GAP_LIMIT, every argmax flip where the plain top-1
-    leads by at most twice it, and each job's accuracy the one its
-    kernel-route logits give (over the vocabulary; the padded columns
-    hold -1e30 on both routes)."""
-    precision, vocab = ctl.cc.job_precision, engine.cfg.vocab_size
+def _window_evals_held(engine, jobs, kernel, layers, tag):
+    """One eval_jobs call over `jobs` (live jobs of `engine`) at the
+    loop's shapes and each job's precision, every forward through
+    `kernel` (`layers` launches a forward) held to the plain route on
+    the same params and rows: the largest logit difference within
+    GAP_LIMIT, every argmax flip where the plain top-1 leads by at most
+    twice it, and each job's accuracy the one its kernel-route logits
+    give (over the vocabulary; the padded columns hold -1e30 on both
+    routes)."""
+    vocab = engine.cfg.vocab_size
     held, apply = [], engine.model.apply
 
     def held_apply(params, toks, **kw):
@@ -1986,13 +2132,14 @@ def _window_evals_held(engine, ctl):
                      plain[0][:, :-1, :vocab].float()))
         return out
     engine.model.apply = held_apply
-    _reset_window_launches()
-    accs = engine.eval_jobs(ctl.jobs)
-    launches = flash_attention.launches
+    kernel.launches = 0
+    accs = engine.eval_jobs(jobs)
+    launches = kernel.launches
     del engine.model.apply              # back to the class's method
-    assert len(held) == len(ctl.jobs), (len(held), len(ctl.jobs))
-    assert launches == len(held) * engine.cfg.num_layers, launches
-    for job, acc, (toks, lk, lr) in zip(ctl.jobs, accs, held):
+    assert len(held) == len(jobs), (len(held), len(jobs))
+    assert launches == len(held) * layers, (launches, len(held), layers)
+    for job, acc, (toks, lk, lr) in zip(jobs, accs, held):
+        precision = job.precision
         labels = toks[:, 1:]
         gap = float((lk - lr).abs().max())
         ak, ap = lk.argmax(-1), lr.argmax(-1)
@@ -2005,7 +2152,7 @@ def _window_evals_held(engine, ctl):
         mine = float(np.mean(_hit_mean(
             hit[:len(job.members)].sum(1).cpu().numpy(),
             hit.shape[1]).astype(np.float64)))
-        print(f"[window] (c) eval_jobs {job.job_id} {precision} "
+        print(f"{tag} eval_jobs {engine.cfg.name} {job.job_id} {precision} "
               f"{tuple(toks.shape)}: accuracy {acc!r} (from the kernel "
               f"route's logits {mine!r}); largest logit difference to the "
               f"plain route {gap:.3e} (limit {GAP_LIMIT[precision]:g}, max "
@@ -2120,6 +2267,7 @@ def window_full_width():
               f"; losses {[round(x, 4) for x in losses]}")
         assert got == want, (got, want)
         assert losses and all(math.isfinite(x) for x in losses), losses
+        WINDOW_MS.append(ms)
     busy, kernels = _device_busy_ms(prof)
     _window_gemm_rate(cfg, shapes, prof)
     if kernels:
@@ -2136,7 +2284,9 @@ def window_full_width():
               f"{e.key[:90]}")
     for got, want in triggers:
         assert got == want, (got, want)
-    _window_evals_held(engine, ctl)
+    assert all(j.precision == ctl.cc.job_precision for j in ctl.jobs)
+    _window_evals_held(engine, ctl.jobs, flash_attention, cfg.num_layers,
+                       "[window] (c)")
     assert all(n > 0 for n in totals.values()), totals
     assert bank._host is None           # no job's state crossed to the host
     assert checker.windows_checked == sc.windows
@@ -2148,6 +2298,287 @@ def window_full_width():
           f"exact host path's; invariants held on {checker.windows_checked} "
           f"windows; host mirror never allocated")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: roofline-metered windows
+# ---------------------------------------------------------------------------
+METER_KERNELS = (flash_attention, fleet_drift, pairwise_js, mlstm_scan)
+METER_MARGIN = 0.2      # fp32 rescore margin of the bf16 screens
+METER_ACC_GAP = 0.01    # (a): card vs CPU per-stream bf16-screen accuracies
+# full width: only the first job's fair share affords olmo-1b (the budget
+# is chosen so), so its bank holds 2 rows (12.89 GB each: the job's and a
+# dying one's); every later job trains xlstm-350m, 4 rows
+METER_BANK, METER_ZOO_BANK = 2, 4
+
+
+def _meter_kw(sc, **kw):
+    out = dict(window_seconds=sc.window_seconds,
+               shared_bandwidth=sc.shared_bandwidth, local_caps=sc.local_caps)
+    out.update(wtrace.GOLDEN_CONTROLLER)
+    out.update(kw)
+    return out
+
+
+def meter_budget(engines, table, precision, sc):
+    """A budget at which the first job's fair share, budget / window_micro,
+    affords the costliest tier's micro-window and a later job's, budget /
+    (window_micro x (jobs + 1)), only the cheapest's: window_micro x (the
+    two tiers' micro-window seconds summed). Returns (budget, {tier:
+    micro-window seconds})."""
+    probe = FRAMEWORKS["ecco"](engines[0], [], ControllerConfig(
+        **_meter_kw(sc, cost_table=table)))
+    micro = {e.cfg.name: probe._micro_seconds(e.cfg, precision)
+             for e in engines}
+    hi, lo = max(micro.values()), min(micro.values())
+    wm = probe.cc.window_micro
+    budget = wm * (hi + lo)
+    assert budget / wm >= hi and lo <= budget / (2 * wm) < hi, micro
+    return budget, micro
+
+
+def run_metered(engines, dev, table, budget, *, checker=True,
+                on_window=None, **kw):
+    """ecco over the golden scenario, engines[0] primary and the rest its
+    zoo, under `budget` priced by `table`; invariants on. Returns the
+    controller, the trace and each canonical job's tier."""
+    sc = wtrace.golden_scenario()
+    cc = ControllerConfig(**_meter_kw(sc, cost_table=table,
+                                      roofline_budget=budget, **kw))
+    ctl = FRAMEWORKS["ecco"](engines[0], list(sc.streams), cc,
+                             zoo=list(engines[1:]))
+    ctl.warmup()
+    chk = InvariantChecker(bank_exact=False, label=f"meter {dev}")
+    trace, names, tier = {"windows": []}, {}, {}
+    for w in range(sc.windows):
+        chk.before_window(ctl)
+        n_ev = len(ctl.grouper.events)
+        t0 = time.perf_counter()
+        wm = ctl.run_window()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        events = ctl.grouper.events[n_ev:]
+        chk.after_window(ctl, wm, events)
+        rec = wtrace._window_record(ctl, wm, events, names)
+        trace["windows"].append(rec)
+        # a comprehension: a loop variable would keep a job that dies in
+        # the next window alive through that window's invariant check
+        tier.update({wtrace._canon(names, j.job_id): j.engine.cfg.name
+                     for j in ctl.jobs})
+        if on_window is not None:
+            on_window(w, ctl, wm, rec, ms, tier)
+    assert chk.windows_checked == sc.windows
+    return ctl, trace, tier
+
+
+def meter_smoke():
+    """(a) The golden scenario under ecco at smoke width with a budget
+    that binds, the zoo-big / zoo-small tiers, bf16 screens with an fp32
+    rescore margin, fp32 training from one set of initial weights per
+    tier: on the card (flash_attention on the evals: bf16 on the
+    tensor-core prefill, the rescores fp32 on the CUDA-core kernel) and
+    on the CPU, priced once with the tests' fixed-seconds table and once
+    with the H100 CostTable. Groups, events, each job's tier and the
+    roofline reports equal card vs CPU; the screens' accuracy gap under
+    METER_ACC_GAP."""
+    from repro_torch.launch.roofline import CostTable
+    sc = wtrace.golden_scenario()
+    tcfg = TrainConfig(**WINDOW_FP32)
+    inits = [{0: tree_map(lambda x: x.numpy(), SharedEngine(
+        c, tcfg, device="cpu").fresh_state(0)["params"])}
+        for c in wtrace.zoo_tiers()]
+    for name, table in [("fixed-seconds",
+                         wtrace.FixedTable({"zoo-small": 0.25})),
+                        ("H100 CostTable", CostTable())]:
+        runs = []
+        for dev in (DEV, torch.device("cpu")):
+            engines = [SharedEngine(c, tcfg, init_params=i, device=dev)
+                       for c, i in zip(wtrace.zoo_tiers(), inits)]
+            budget, micro = meter_budget(engines, table, "bf16", sc)
+            t0 = time.perf_counter()
+            ctl, trace, tier = run_metered(
+                engines, dev, table, budget, job_precision="bf16",
+                rescore_margin=METER_MARGIN)
+            runs.append((ctl, trace, tier, time.perf_counter() - t0))
+        (cc, ct, ctier, cs), (pc, pt, ptier, ps) = runs
+        reports = [[wm.roofline for wm in c.history] for c in (cc, pc)]
+        diffs = wtrace.compare(ct, pt)
+        gap = max((abs(a - b) for wc, wp in zip(ct["windows"], pt["windows"])
+                   for a, b in zip(wc["acc"].values(), wp["acc"].values())
+                   if a is not None and b is not None), default=0.0)
+        print(f"[meter] (a) {name}: budget {budget!r} s, micro-window s "
+              f"{micro}; tiers {ctier}; rescores card {cc.grouper.rescores}"
+              f" CPU {pc.grouper.rescores}; card vs CPU {len(diffs)} "
+              f"compare diffs, largest bf16-screen accuracy gap {gap!r}; "
+              f"{cs:.1f}s on the card, {ps:.1f}s on the CPU")
+        for w, rep in enumerate(reports[0]):
+            print(f"[meter] (a)   window {w}: {rep}")
+        assert ctier == ptier and set(ctier.values()) == {"zoo-big",
+                                                          "zoo-small"}
+        assert gap < METER_ACC_GAP, (gap, METER_ACC_GAP)
+        for wc, wp in zip(ct["windows"], pt["windows"]):
+            assert wc["groups"] == wp["groups"], (wc["groups"], wp["groups"])
+            assert wc["events"] == wp["events"]
+        assert reports[0] == reports[1], reports
+        assert all(r is not None for r in reports[0])
+
+
+def _mlstm_layers(cfg):
+    return sum(s.count for s in layer_plan(cfg) if s.kind == "mlstm")
+
+
+def meter_full_width():
+    """(b) olmo-1b at its published config (vocabulary cut to the
+    scenario's 64) with one zoo tier, xlstm-350m at its published config
+    (vocab 64), random weights, bf16 training over fp32 masters; ecco on
+    the golden scenario with drift_impl="auto", a top-2 shortlist,
+    job_precision="bf16" with an fp32 rescore margin, priced by the H100
+    CostTable under a budget at which the first job affords olmo-1b and
+    every later one only xlstm-350m; invariants on, 3 windows. Per
+    window: the modeled ledger by kind beside the measured ms, micro-
+    windows and tokens trained, each job's tier, the fp32 rescores taken,
+    each kernel's launches beside the count reckoned from the eval
+    forwards and the grouping requests, peak memory beside the banks'
+    bytes. In the first window in which a tier has live jobs, one more
+    eval_jobs call over them, each forward held to the plain route
+    (_window_evals_held). Returns the four kernels' launches over the
+    run."""
+    from repro_torch.launch.roofline import CostTable
+    while gc.collect():          # [window]'s bank outlives it otherwise
+        pass
+    torch.cuda.empty_cache()
+    sc = wtrace.golden_scenario()
+    cfgs = [dataclasses.replace(get_config(a), vocab_size=sc.bank.vocab)
+            for a in (ARCH, XLSTM)]
+    engines = [SharedEngine(c, device=DEV) for c in cfgs]
+    rows = [12 * e.model.num_params() + 4 for e in engines]
+    caps = (METER_BANK, METER_ZOO_BANK)
+    reckoned = sum(r * c for r, c in zip(rows, caps)) + rows[0]
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[meter] (b) reckoned before the run: {ARCH} bank {caps[0]} x "
+          f"{rows[0] / 1e9:.2f} GB, {XLSTM} bank {caps[1]} x "
+          f"{rows[1] / 1e9:.2f} GB, a fresh {ARCH} state {rows[0] / 1e9:.2f}"
+          f" GB: {reckoned / 1e9:.2f} GB of {total / 1e9:.2f} GB "
+          f"(memory in use now {torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    assert reckoned < 0.85 * total, reckoned
+    torch.cuda.reset_peak_memory_stats()
+    forwards, trained = [], []       # (engine name, rows, precision)
+    split = collections.Counter()    # host-clock ms per (engine, pass)
+    for e, cap in zip(engines, caps):
+        e.bank = bank = JobBank(e, capacity=cap)
+
+        def no_growth(need, bank=bank):
+            if need > bank.capacity:
+                raise RuntimeError(f"{bank.engine.cfg.name}: a job for "
+                                   f"slot {need}, past {bank.capacity} rows")
+        bank._grow_to = no_growth
+        hits, train = e._forward_hits, e.train_micro_many
+
+        def counted(params, toks, precision, e=e, hits=hits):
+            forwards.append((e.cfg.name, tuple(toks.shape), precision))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = hits(params, toks, precision)
+            torch.cuda.synchronize()
+            split[e.cfg.name, "eval"] += 1e3 * (time.perf_counter() - t0)
+            return out
+
+        def recorded(jobs, e=e, train=train):
+            n = {j.job_id: min(j.batch, len(j.pool)) * (j.pool.seq or 0)
+                 * j.micro_steps for j in jobs}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mets = train(jobs)
+            torch.cuda.synchronize()
+            split[e.cfg.name, "train"] += 1e3 * (time.perf_counter() - t0)
+            trained.extend((e.cfg.name, n[k], m) for k, m in mets.items())
+            return mets
+        e._forward_hits, e.train_micro_many = counted, recorded
+    table = CostTable()
+    budget, micro = meter_budget(engines, table, "bf16", sc)
+    print(f"[meter] (b) budget {budget!r} modeled s a window; one "
+          f"micro-window (2 train steps at batch 8, 2 evals at batch 16, "
+          f"seq 32, bf16) {micro} s on the H100 CostTable")
+    members, totals = {}, dict.fromkeys((k.__name__ for k in METER_KERNELS),
+                                        0)
+    layers = {cfgs[0].name: cfgs[0].num_layers,
+              cfgs[1].name: _mlstm_layers(cfgs[1])}
+    window_ms, held = [], set()
+
+    def report(w, ctl, wm, rec, ms, tier):
+        got = {k.__name__: k.launches for k in METER_KERNELS}
+        by = collections.Counter(n for n, _, _ in forwards)
+        want = {"flash_attention": by[cfgs[0].name] * layers[cfgs[0].name],
+                "mlstm_scan": by[cfgs[1].name] * layers[cfgs[1].name],
+                "fleet_drift": 1,
+                "pairwise_js": _js_requests(rec["events"], members)}
+        for k in totals:
+            totals[k] += got[k]
+        losses = [x for _, _, m in trained for x in m["loss"].tolist()]
+        rep = wm.roofline
+        print(f"[meter] (b) window {w}: {ms:.1f} ms measured, "
+              f"{1e3 * rep['spent']:.3f} ms modeled "
+              f"{ {k: round(1e3 * v, 3) for k, v in rep['by_kind'].items()} }"
+              f" of {1e3 * rep['total']:.3f}; notes {rep['notes']}; "
+              f"{len(trained)} micro-windows "
+              f"{dict(collections.Counter(n for n, _, _ in trained))}, "
+              f"{sum(t for _, t, _ in trained)} tokens trained; eval "
+              f"forwards {dict(collections.Counter(forwards))}; tiers "
+              f"{tier}; fp32 rescores so far {ctl.grouper.rescores}; "
+              f"launches {got} (reckoned {want}); groups {rec['groups']}; "
+              f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        print(f"[meter] (b) window {w} host-clock split, ms: "
+              f"{ {f'{n} {k}': round(v, 1) for (n, k), v in split.items()} }"
+              f", the rest {ms - sum(split.values()):.1f}")
+        assert got == want, (got, want)
+        assert all(math.isfinite(x) for x in losses), losses
+        window_ms.append(ms)
+        # the first window in which a tier has live jobs: those jobs once
+        # more, every forward held to the plain route (launches for the
+        # comparison, after this window's counts were read)
+        for e, kernel in zip(engines, (flash_attention, mlstm_scan)):
+            jobs = [j for j in ctl.jobs if j.engine is e]
+            if jobs and e.cfg.name not in held:
+                assert all(j.precision == "bf16" for j in jobs)
+                _window_evals_held(e, jobs, kernel, layers[e.cfg.name],
+                                   f"[meter] (b) window {w}")
+                held.add(e.cfg.name)
+        forwards[:], trained[:] = [], []
+        split.clear()
+        for k in METER_KERNELS:
+            k.launches = 0
+
+    for k in METER_KERNELS:
+        k.launches = 0
+    ctl, trace, tier = run_metered(
+        engines, DEV, table, budget, on_window=report, drift_impl="auto",
+        shortlist_k=2, job_precision="bf16", rescore_margin=METER_MARGIN)
+    banks = sum(e.bank.capacity * e.bank.state_row_nbytes for e in engines)
+    print(f"[meter] (b) windows {[round(x, 1) for x in window_ms]} ms "
+          f"metered with bf16 screens, beside [window] (c)'s unmetered fp32 "
+          f"windows {[round(x, 1) for x in WINDOW_MS]} ms in this run; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"beside the banks' {banks / 1e9:.2f} GB; tiers {tier}")
+    assert set(tier.values()) == {cfgs[0].name, cfgs[1].name}, tier
+    assert tier["g0"] == cfgs[0].name, tier      # the first job's share
+    assert all(n > 0 for n in totals.values()), totals
+    assert all(e.bank._host is None for e in engines)
+    assert held == {e.cfg.name for e in engines}, held
+    return totals
+
+
+def meter_launcher():
+    """(c) `repro_torch.launch.train.main` on the card at smoke scale, two
+    windows, the fleet's regions switching domain at t = 5 so that the
+    second window has groups to score: its windows printed, a finite
+    final accuracy."""
+    from repro_torch.launch import train as launch_train
+    t0 = time.perf_counter()
+    final = launch_train.main(["--windows", "2", "--switch-time", "5"])
+    print(f"[meter] (c) launch.train on the card: 2 windows in "
+          f"{time.perf_counter() - t0:.1f}s, final mean accuracy {final!r}")
+    assert math.isfinite(final), final
 
 
 # ---------------------------------------------------------------------------
@@ -2992,6 +3423,11 @@ def main():
     torch.cuda.empty_cache()
     window = phase(f"window {ARCH}", window_full_width)
     torch.cuda.empty_cache()
+    phase("meter smoke", meter_smoke)
+    meter = phase(f"meter {ARCH} + {XLSTM}", meter_full_width)
+    torch.cuda.empty_cache()
+    phase("meter launcher", meter_launcher)
+    torch.cuda.empty_cache()
     fleet = phase(f"fleet {ARCH}", fleet_full_width)
     torch.cuda.empty_cache()
     phase("fleet smoke", fleet_smoke)
@@ -3028,23 +3464,27 @@ def main():
              hymba_combine_launches=hymba["flash_attention_combine"],
              train_eval_launches=train_eval,
              window_launches=window["flash_attention"],
+             meter_launches=meter["flash_attention"],
              fleet_launches=fleet[0], fleet_combine_launches=fleet[1],
              tensor_core_hmma=hmma),
         dict(_entry("fleet_drift", *src["fleet_drift"],
                     launches["fleet_drift"], err["fleet_drift"], fd),
-             window_launches=window["fleet_drift"]),
+             window_launches=window["fleet_drift"],
+             meter_launches=meter["fleet_drift"]),
         dict(_entry("pairwise_js", *src["pairwise_js"],
                     launches["pairwise_js"], err["pairwise_js"], pj[1],
                     requests_32=pj[32]),
              storm_full_uploads=storm["full_uploads"],
              storm_rows_uploaded=storm["rows_uploaded"],
-             window_launches=window["pairwise_js"]),
+             window_launches=window["pairwise_js"],
+             meter_launches=meter["pairwise_js"]),
         dict(_entry("ssd_scan", *src["ssd_scan"], launches["ssd_scan"],
                     err["ssd_scan"], ssd),
              bound_cuda_core_ms=ssd["bound_cuda_core"][0]),
         dict(_entry("mlstm_scan", *src["mlstm_scan"], launches["mlstm_scan"],
                     err["mlstm_scan"], ml),
-             bound_cuda_core_ms=ml["bound_cuda_core"][0]),
+             bound_cuda_core_ms=ml["bound_cuda_core"][0],
+             meter_launches=meter["mlstm_scan"]),
     ]
     assert [e["name"] for e in kernels] == [k[0] for k in KERNELS]
     for e in kernels:

@@ -23,8 +23,10 @@ Jobs are duck-typed: they expose
 term; paper Fig. 10).
 
 `meter=` (roofline budgets), `stragglers=`, `deadline=` and `barrier=`
-are duck-typed as in the reference and port as they are; the port has
-no roofline meter of its own yet (ROADMAP.md queue 1 item 5).
+are duck-typed as in the reference and port as they are. The controller's
+meter is `launch.roofline.RooflineMeter`, which prices each job from its
+engine's config and precision on the port's H100 `CostTable`
+(tests/test_torch_roofline.py holds the metered loop with it).
 """
 from __future__ import annotations
 
@@ -87,8 +89,10 @@ class ECCOAllocator:
                    meter=None) -> AllocationTrace:
         """Run one retraining window of `window_micro` micro-windows.
 
-        `meter`: optional roofline meter (duck-typed). When set, each
-        micro-window is converted into metered roofline cost (the job's
+        `meter`: optional launch.roofline.RooflineMeter (duck-typed:
+        anything with its micro_cost / eval_cost / can_afford / charge /
+        report). When set, each micro-window is converted into metered
+        roofline cost (the job's
         own model config, batch, and precision policy price it) and
         charged against the meter's fleet-wide WindowBudget; the greedy
         pick maximizes objective gain PER METERED COST, so a

@@ -11,9 +11,12 @@ ported from the JAX package's `core/baselines.py`:
 
 All reuse ECCO's substrate (SharedEngine jobs, GAIMD fluid network) with
 the coordination pieces swapped out, so comparisons isolate the paper's
-contributions. As in the reference, the grouper's and the allocator's
-methods are patched on the instance each window (`InvariantChecker`
-recognises a patched framework by its instance attributes).
+contributions. As in the reference, a roofline budget reaches them
+through `cc` (`ControllerConfig.roofline_budget` / `cost_table`), and
+they take no `zoo`: every job of theirs trains on the primary engine.
+The grouper's and the allocator's methods are patched on the instance
+each window (`InvariantChecker` recognises a patched framework by its
+instance attributes).
 """
 from __future__ import annotations
 
@@ -40,6 +43,14 @@ class IndependentController(ECCOController):
         super().__init__(engine, streams, cc, seed=seed)
         self.allocator = self.allocator_cls()
         self.zoo: Dict[str, dict] = {}
+
+    def _pick_engine(self) -> SharedEngine:
+        """Every new job on the primary engine: the baselines take no
+        zoo of engines, and their `zoo` holds RECL's model snapshots. The
+        reference inherits ECCO's metered placement here, which adds that
+        dict to its tier list and raises TypeError once RECL has a
+        snapshot under a roofline budget (ROADMAP.md queue 3)."""
+        return self.engine
 
 
 def _independent_group_request(self, jobs, req: Request):

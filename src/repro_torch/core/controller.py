@@ -33,9 +33,17 @@ equal seeds give equal tokens:
 Accuracies leave the engine as Python floats, so the allocator's and
 the grouper's arithmetic runs in float64 as the reference's does.
 
-Not here yet, and refused loudly: roofline budgets
-(`cc.roofline_budget`, `cc.cost_table`, ROADMAP.md queue 1 item 5), and
-`mesh`, `elastic`, `stragglers` and `zoo` (items 5 and 9).
+With `cc.roofline_budget` the window is metered (docs/scheduling.md):
+a fresh `launch.roofline.RooflineMeter` over the controller's
+`CostTable` (an H100 roofline unless `cc.cost_table` gives another
+table) charges the window's grouping and metrics evals (and, with
+`serve`, the gate's evals and the queries) up front, and Alg. 1 spends
+the remainder by gain per modeled second; `WindowMetrics.roofline` is
+the ledger. `zoo` engines are smaller model classes a metered controller
+may place NEW jobs on (`_pick_engine`).
+
+Not here yet, and refused loudly: `mesh`, `elastic` and `stragglers`
+(ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -44,7 +52,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.core.allocator import ECCOAllocator
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.allocator import AllocationTrace, ECCOAllocator
 from repro_torch.core.batching import engine_groups
 from repro_torch.core.drift import FleetDriftDetector, batch_token_histogram
 from repro_torch.core.grouping import Grouper, Request
@@ -89,9 +98,17 @@ class ControllerConfig:
     # Read-only w.r.t. the decision planes: it reuses the window's
     # already-drawn data and consumes no rng
     serve: Optional[ServeConfig] = None
-    # not ported yet; a value other than None raises (see the module
-    # docstring)
+    # roofline-budgeted co-scheduling: fleet-wide modeled device-seconds
+    # per window, covering the train pass, the allocator / grouper /
+    # metrics eval passes and (with `serve`) the serve plane, on ONE
+    # budget. The grouping / metrics / serve shares are reserved up front
+    # each window, so retraining competes only for the remainder, by gain
+    # per metered cost. None = the unmetered path (golden traces)
     roofline_budget: Optional[float] = None
+    # launch.roofline.CostTable to price windows with (anything with its
+    # `seconds(cfg, *, batch, seq, kind, precision)`); None builds one
+    # lazily on the first metered window and keeps it (the cache is the
+    # point)
     cost_table: Optional[object] = None
     # decision-plane screen precision for NEW jobs ("fp32" | "bf16");
     # near-threshold grouping decisions rescore in fp32 when
@@ -114,8 +131,8 @@ class WindowMetrics:
     # tick latency / swap-gate counters / per-group staleness. None
     # whenever ControllerConfig.serve is off
     serve: Optional[Dict] = None
-    # the roofline meter's window report in the reference; always None
-    # here (not ported yet)
+    # roofline ledger for the window (WindowBudget.report plus the
+    # allocator's degrade / drop notes); None when metering is off
     roofline: Optional[Dict] = None
 
 
@@ -134,19 +151,18 @@ class ECCOController:
                  cc: Optional[ControllerConfig] = None, *, seed: int = 0,
                  mesh=None, elastic=None, stragglers=None, zoo=None):
         """`engine`'s device carries the fleet planes too: the drift
-        screen and the signature shortlist run where the jobs do."""
+        screen and the signature shortlist run where the jobs do. `zoo`:
+        optional sequence of further SharedEngines (smaller model classes
+        on the same device and vocabulary) a metered controller may place
+        NEW jobs on: under budget pressure `_new_job` picks the largest
+        tier whose micro-window cost fits the job's fair share of the
+        window budget. Requires cc.roofline_budget; ignored otherwise."""
         self.cc = cc or ControllerConfig()
-        if self.cc.roofline_budget is not None \
-                or self.cc.cost_table is not None:
-            _refuse("roofline-budgeted windows (ControllerConfig."
-                    "roofline_budget / cost_table)", "item 5")
         if mesh is not None or elastic is not None:
             _refuse("the controller under a mesh or an elastic runtime",
                     "item 9")
         if stragglers is not None:
             _refuse("straggler policies", "item 9")
-        if zoo is not None:
-            _refuse("zoo engines (metered job placement)", "item 5")
         self.engine = engine
         self.streams = list(streams)
         self.allocator = ECCOAllocator()
@@ -160,6 +176,10 @@ class ECCOController:
                                index=self.sig_index,
                                shortlist_k=self.cc.shortlist_k,
                                rescore_margin=self.cc.rescore_margin)
+        # model-class tiers for metered job placement: the primary engine
+        # plus any zoo engines, priced lazily per window
+        self.zoo: List[SharedEngine] = list(zoo or [])
+        self._cost_table = self.cc.cost_table
         self.jobs: List[RetrainJob] = []
         table = self.cc.profile_table
         if table is None:
@@ -195,10 +215,89 @@ class ECCOController:
 
     # ------------------------------------------------------------------
     def _new_job(self, req: Request) -> RetrainJob:
-        return RetrainJob(self.engine, req,
+        return RetrainJob(self._pick_engine(), req,
                           micro_steps=self.cc.micro_steps,
                           batch=self.cc.train_batch, seed=self._seed,
                           precision=self.cc.job_precision)
+
+    # -- roofline co-scheduling ------------------------------------------
+    def _table(self):
+        """The shared CostTable, built lazily on the first metered window
+        (its cache is kept across windows)."""
+        if self._cost_table is None:
+            from repro_torch.launch.roofline import CostTable
+            self._cost_table = CostTable()
+        return self._cost_table
+
+    def _micro_seconds(self, cfg, precision: str) -> float:
+        """Modeled seconds of one allocator micro-window (train pass +
+        the two bracketing evals) for a job on `cfg` at the controller
+        batch settings."""
+        cc = self.cc
+        tbl = self._table()
+        return (cc.micro_steps * tbl.seconds(
+                    cfg, batch=cc.train_batch, seq=cc.seq_len,
+                    kind="train", precision=precision)
+                + 2 * tbl.seconds(
+                    cfg, batch=cc.eval_batch, seq=cc.seq_len,
+                    kind="eval", precision=precision))
+
+    def _pick_engine(self) -> SharedEngine:
+        """Model class for a NEW job: without metering (or a zoo) the
+        primary engine. Under a roofline budget, the costliest tier whose
+        one micro-window fits the job's fair share of the window budget,
+        `budget / (window_micro * (jobs + 1))`; a fleet under budget
+        pressure retrains a smaller backbone rather than starve."""
+        cc = self.cc
+        if not self.zoo or cc.roofline_budget is None:
+            return self.engine
+        prec = cc.job_precision
+        tiers = sorted(
+            [self.engine] + self.zoo,
+            key=lambda e: self._micro_seconds(e.cfg, prec), reverse=True)
+        fair = cc.roofline_budget / max(1, cc.window_micro) \
+            / (len(self.jobs) + 1)
+        for e in tiers:
+            if self._micro_seconds(e.cfg, prec) <= fair:
+                return e
+        return tiers[-1]          # nothing fits: cheapest tier
+
+    def _window_meter(self):
+        """A fresh RooflineMeter for this window, or None (unmetered)."""
+        if self.cc.roofline_budget is None:
+            return None
+        from repro_torch.launch.roofline import RooflineMeter
+        return RooflineMeter(self._table(), self.cc.roofline_budget,
+                             seq_len=self.cc.seq_len,
+                             eval_batch=self.cc.eval_batch)
+
+    def _reserve_overheads(self, meter):
+        """Charge the window's NON-allocator compute up front so that
+        retraining competes only for the remainder: the Alg. 2
+        update-grouping screens (one eval per member), the window metrics
+        eval (one eval per grouped stream), and, with serving on, each
+        group's fp32 gate validation plus its streams' query prefills and
+        decode steps."""
+        cc = self.cc
+        for j in self.jobs:
+            meter.charge(meter.eval_cost(j), "grouping")
+            meter.charge(meter.eval_cost(j), "metrics")
+        if self.serve_plane is None:
+            return
+        scfg = cc.serve
+        tbl = self._table()
+        for j in self.jobs:
+            cfg = getattr(getattr(j, "engine", None), "cfg", None)
+            if not isinstance(cfg, ModelConfig):
+                continue
+            # validation gate: candidate + incumbent, always fp32
+            meter.charge(2 * tbl.seconds(
+                cfg, batch=cc.eval_batch, seq=cc.seq_len, kind="eval",
+                precision="fp32"), "serve")
+            meter.charge(meter.serve_cost(
+                cfg, queries=j.num_members * scfg.queries_per_stream,
+                prompt_len=max(1, scfg.prompt_len),
+                gen_tokens=scfg.max_new), "serve")
 
     def _jobs_by_stream(self) -> Dict[str, RetrainJob]:
         """One O(members) pass; callers iterating the whole fleet grab
@@ -261,6 +360,8 @@ class ECCOController:
         """One retraining window (steps 1-6 of the module docstring)."""
         cc = self.cc
         t = self.t
+        meter = self._window_meter()   # None = the unmetered path
+        alloc_trace: Optional[AllocationTrace] = None
 
         # 1. live data + drift detection -> retraining requests. Sampling
         # stays per-stream (each stream owns its rng); scoring is ONE
@@ -336,9 +437,15 @@ class ECCOController:
                     continue
                 j.ingest(sl, m.stream_id)
 
-            # 4. the allocator runs the retraining window (Alg. 1)
-            self.allocator.run_window(self.jobs, cc.window_micro,
-                                      deadline=cc.window_deadline)
+            # 4. the allocator runs the retraining window (Alg. 1). With
+            # a roofline budget the window's eval / serve co-tenants are
+            # charged FIRST and the allocator maximizes gain per metered
+            # cost over the remainder
+            if meter is not None:
+                self._reserve_overheads(meter)
+            alloc_trace = self.allocator.run_window(
+                self.jobs, cc.window_micro, deadline=cc.window_deadline,
+                meter=meter)
 
             # 5. periodic regrouping (Alg. 2 UpdateGrouping), evaluated
             # on each member's RECENT window data, with the drift
@@ -392,9 +499,15 @@ class ECCOController:
 
         groups = {j.job_id: [m.stream_id for m in j.members]
                   for j in self.jobs}
+        roofline = None
+        if meter is not None:
+            roofline = meter.report()
+            roofline["notes"] = list(alloc_trace.notes) \
+                if alloc_trace is not None else []
         wm = WindowMetrics(t=t, per_stream_acc=acc, groups=groups,
                            shares=shares, bandwidth=bw,
-                           delivered=delivered, serve=serve_report)
+                           delivered=delivered, serve=serve_report,
+                           roofline=roofline)
         self.history.append(wm)
         self.t += cc.window_seconds
         return wm

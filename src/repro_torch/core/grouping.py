@@ -75,6 +75,7 @@ class Grouper:
         # re-scored once in fp32 and the decision uses the fp32 value.
         # 0.0 (default) + all-fp32 fleet = the seed decision path.
         self.rescore_margin = float(rescore_margin)
+        self.rescores = 0                # fp32 rescores taken
         self.events: List[dict] = []     # grouping decisions (for Fig. 9)
 
     def _rescore(self, job, samples, screened: float,
@@ -86,9 +87,11 @@ class Grouper:
                 or abs(screened - threshold) > self.rescore_margin):
             return screened
         try:
-            return float(job.eval_on(samples, precision="fp32"))
+            acc = float(job.eval_on(samples, precision="fp32"))
         except TypeError:
             return screened
+        self.rescores += 1
+        return acc
 
     # -- candidate selection --------------------------------------------------
     def _python_candidates(self, jobs: List, req: Request) -> List[int]:

@@ -307,6 +307,36 @@ def hostile_trace(name: str, framework: str,
     return trace
 
 
+# Metered windows held apart from any cost counter: one duck-typed table
+# of fixed seconds (`cc.cost_table`), and the two model classes of the
+# reference's heterogeneity benchmark (benchmarks/bench_heterogeneity.py)
+# as a zoo, zoo-big the primary engine.
+class FixedTable:
+    """Fixed modeled seconds per (config name, kind), scaled per config
+    name by `scale`; bf16 at half."""
+    SEC = {"train": 1.0, "eval": 0.25, "prefill": 0.5, "decode": 0.05}
+
+    def __init__(self, scale: Optional[Dict[str, float]] = None):
+        self.scale = dict(scale or {})
+
+    def seconds(self, cfg, *, batch, seq, kind, precision="fp32"):
+        s = self.SEC[kind] * self.scale.get(cfg.name, 1.0)
+        return s * (0.5 if precision == "bf16" else 1.0)
+
+
+def zoo_tiers(base=None):
+    """(zoo-big, zoo-small) from `base`, the smoke olmo-1b config (this
+    package's by default; any ModelConfig dataclass with its fields)."""
+    base = smoke_config("olmo-1b") if base is None else base
+    big = dataclasses.replace(base, name="zoo-big", vocab_size=64,
+                              d_model=128, d_ff=512, num_heads=8,
+                              num_kv_heads=8, num_layers=4)
+    small = dataclasses.replace(base, name="zoo-small", vocab_size=64,
+                                d_model=64, d_ff=256, num_heads=4,
+                                num_kv_heads=4, num_layers=2)
+    return big, small
+
+
 def golden_path(dirpath: str, framework: str,
                 scenario: Optional[str] = None) -> str:
     """Golden file path; `scenario=None` is the benign drift_wave
