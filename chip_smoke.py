@@ -123,6 +123,25 @@ Phases, in order; the script exits non-zero at the first failure:
    logits within FLEET_SMOKE_TOL, bf16 tokens where the CPU's top-1
    leads); `launch.serve --fleet` and `examples.serve_continuous` on the
    card.
+6f. The rest of the model registry (`[families]`, after 6d; garbage
+   collected until nothing is freed first). (a) qwen2-moe-a2.7b at its
+   published config (24 layers, 60 experts top-4 and 4 shared, 14.32 B
+   parameters, 57.3 GB in fp32) through `repro_torch.launch.serve.main`
+   with olmo-1b's serving arguments: launches 24 per prefill and per
+   decode call, combines 24 per decode call, ms per prefill and tick,
+   tokens/s, peak memory beside the 57.3 GB; then prefill last-token
+   logits kernel vs plain route within LOGIT_TOL, with the (token, k)
+   routes that differ between the routes counted per layer. (b)
+   llama3-8b, starcoder2-3b and stablelm-3b at their published configs
+   the same way, 2 requests in 2 slots, 8 new tokens. (c) hubert-xlarge's
+   encode step on (4, 1024, 1280) frames: 48 non-causal flash_attention
+   launches, ms per encode, logits kernel vs plain. (d) qwen3-moe-30b-a3b
+   and chameleon-34b at smoke width card vs CPU (their fp32 parameters do
+   not fit one card), and the fleet decode step of a qwen2-moe smoke
+   student card vs CPU. `check_attention` also holds head_dim 80 (prefill
+   causal and non-causal, hubert's encode, split-KV decode) and GQA
+   groups 4 / 8 / 12 (prefill and split-KV decode); `[time]` adds
+   qwen2-moe's prefill and decode (olmo-1b's shapes) and hubert's encode.
 6e. Roofline-metered windows, run between 6c and 6d (`[meter]`;
    `repro_torch.launch.roofline` and the controller's metering). (a) The
    golden scenario under ecco at
@@ -156,7 +175,10 @@ Phases, in order; the script exits non-zero at the first failure:
    pump's as `fleet_launches` and `fleet_combine_launches`;
    flash_attention's, fleet_drift's and pairwise_js's the full-width
    window loop's as `window_launches`, and with mlstm_scan's the
-   full-width metered windows' as `meter_launches`), the nvidia-smi line
+   full-width metered windows' as `meter_launches`; flash_attention's
+   also `[families]`' as `families_launches` and
+   `families_combine_launches`, and its qwen2-moe and hubert time rows),
+   the nvidia-smi line
    again,
    and as the last line `{"ok": true, "device": {...}}`.
 
@@ -297,6 +319,21 @@ FLEET_SMOKE_CAP, FLEET_SMOKE_TICKS = 48, 3
 # fp32 logits, card vs CPU, at smoke width: the kernels' and the plain
 # versions' fp32 sums differ in order only
 FLEET_SMOKE_TOL = 1e-3
+
+# [families]: (a) qwen2-moe-a2.7b at its published config with olmo-1b's
+# serving arguments (14.32 B parameters, 57.3 GB in fp32); (b) the dense
+# configs with 2 requests in 2 slots, 8 new tokens, 512-token prompts of
+# 1024 positions; (c) hubert-xlarge's encode on (4, 1024, 1280) frames;
+# (d) qwen3-moe-30b-a3b and chameleon-34b at smoke width (their fp32
+# parameters, 122 and 137 GB, do not fit), card vs CPU
+QWEN2 = "qwen2-moe-a2.7b"
+FAM_DENSE = ("llama3-8b", "starcoder2-3b", "stablelm-3b")
+FAM_SMOKE = ("qwen3-moe-30b-a3b", "chameleon-34b")
+FAM_PROMPT, FAM_CAP, FAM_SLOTS, FAM_NEW = 512, 1024, 2, 8
+for _arch in (QWEN2,) + FAM_DENSE:
+    SERVING[_arch] = dict(prompt=FAM_PROMPT, capacity=FAM_CAP)
+HUBERT, HU_FRAMES = "hubert-xlarge", (4, 1024)
+QWEN2_FP32_GB = 57.3
 
 # data-sheet peaks (dense): bytes/s of device memory, FLOP/s of bf16
 # tensor cores and of fp32 outside them; matched against nvidia-smi's name
@@ -578,7 +615,51 @@ def check_attention():
             f"window eval {str(dtype)[6:]} ({rows},32,16,16,128) causal",
             q, k, v, path))
     serving += check_attention_lengths(gen)
+    serving += check_attention_families(gen)
     return max(serving)
+
+
+def check_attention_families(gen):
+    """The new families' shapes ([families]), bf16: head_dim 80
+    (stablelm-3b, hubert-xlarge; padded to 128 inside the kernel) on the
+    prefill, causal and non-causal, and on the split-KV decode; GQA groups
+    of 4, 8 and 12 (llama3-8b, qwen3-moe / chameleon, starcoder2-3b) on
+    the split-KV decode at head_dim 128 and on the prefill; hubert's
+    encode (4, 1024, 16, 16, 80) non-causal. Decodes over strided
+    prefixes of a cache as the families' serving makes them (2 slots,
+    FAM_PROMPT + FAM_NEW - 1 keys of FAM_CAP). Returns the errors."""
+    bf16 = torch.bfloat16
+    T = FAM_PROMPT + FAM_NEW - 1
+    errs = []
+    for B, S, H, K, hd, causal, what in [
+            (1, FAM_PROMPT, 32, 32, 80, True, "stablelm prefill, hd 80"),
+            (1, 300, 32, 32, 80, False, "hd 80 non-causal"),
+            (HU_FRAMES[0], HU_FRAMES[1], 16, 16, 80, False,
+             "hubert encode, hd 80"),
+            (1, FAM_PROMPT, 32, 8, 128, True, "llama3 prefill, G 4"),
+            (1, FAM_PROMPT, 32, 4, 128, True, "qwen3-moe prefill, G 8"),
+            (1, FAM_PROMPT, 24, 2, 128, True, "starcoder2 prefill, G 12")]:
+        q = _randn((B, S, H, hd), bf16, gen)
+        k, v = (_randn((B, S, K, hd), bf16, gen) for _ in range(2))
+        errs.append(_attn_case(
+            f"families {what}: q ({B},{S},{H},{hd}) k,v ({B},{S},{K},{hd}) "
+            f"causal={causal}", q, k, v, "prefill", causal))
+    for H, K, hd, what in [(32, 32, 80, "stablelm decode, hd 80"),
+                           (32, 8, 128, "llama3 decode, G 4"),
+                           (32, 4, 128, "qwen3-moe decode, G 8"),
+                           (64, 8, 128, "chameleon decode, G 8"),
+                           (24, 2, 128, "starcoder2 decode, G 12")]:
+        q = _randn((FAM_SLOTS, 1, H, hd), bf16, gen)
+        ck, cv = (_randn((FAM_SLOTS, FAM_CAP, K, hd), bf16, gen)
+                  for _ in range(2))
+        kp, vp = ck[:, :T], cv[:, :T]
+        assert not kp.is_contiguous()
+        pl = fa_plan(q, kp, vp)
+        errs.append(_attn_case(
+            f"families {what}: q ({FAM_SLOTS},1,{H},{hd}) over bf16 cache "
+            f"prefix ({FAM_SLOTS},{T}/{FAM_CAP},{K},{hd}) ({pl.splits} "
+            f"splits of {pl.split})", q, kp, vp, "split_decode"))
+    return errs
 
 
 def ragged_lengths(B, cap, gen):
@@ -1001,11 +1082,11 @@ def check_pairwise_js(cap):
 # ---------------------------------------------------------------------------
 # phase 4: serve olmo-1b, hymba-1.5b and xlstm-350m at full width
 # ---------------------------------------------------------------------------
-def serve_args(arch):
+def serve_args(arch, requests=REQUESTS, slots=SLOTS, max_new=MAX_NEW):
     sv = SERVING[arch]
-    return ["--arch", arch, "--full", "--requests", str(REQUESTS),
-            "--num-slots", str(SLOTS), "--prompt-len", str(sv["prompt"]),
-            "--max-new", str(MAX_NEW), "--capacity", str(sv["capacity"]),
+    return ["--arch", arch, "--full", "--requests", str(requests),
+            "--num-slots", str(slots), "--prompt-len", str(sv["prompt"]),
+            "--max-new", str(max_new), "--capacity", str(sv["capacity"]),
             "--seed", "0"]
 
 
@@ -1043,16 +1124,16 @@ def expected_launches(cfg, prefills, decode_calls):
             "mlstm_scan": mlstm_layers * prefills}
 
 
-def serve_full_width(arch):
+def serve_full_width(arch, requests=REQUESTS, slots=SLOTS, max_new=MAX_NEW):
     cfg = get_config(arch)
     reset_launches()
-    report = serve.main(serve_args(arch))
+    report = serve.main(serve_args(arch, requests, slots, max_new))
     torch.cuda.synchronize()
     launches = launch_counts()
     out = report["outputs"]
-    assert len(out) == REQUESTS, sorted(out)
+    assert len(out) == requests, sorted(out)
     for rid, toks in out.items():
-        assert len(toks) == MAX_NEW, (rid, len(toks))
+        assert len(toks) == max_new, (rid, len(toks))
         assert all(0 <= t < cfg.vocab_size for t in toks), rid
     prefills = len(report["prefill_s"])
     want = expected_launches(cfg, prefills, report["decode_calls"])
@@ -1065,7 +1146,7 @@ def serve_full_width(arch):
     print(f"[serve] {arch}: prefill ms ({SERVING[arch]['prompt']} tokens): "
           f"median={np.median(pre_ms):.3f} min={pre_ms[0]:.3f} "
           f"max={pre_ms[-1]:.3f} (first includes warm-up)")
-    print(f"[serve] {arch}: decode ms per tick ({SLOTS} slots): "
+    print(f"[serve] {arch}: decode ms per tick ({slots} slots): "
           f"median={np.median(tick_ms):.3f} min={tick_ms[0]:.3f} "
           f"max={tick_ms[-1]:.3f} over {len(tick_ms)} ticks")
     print(f"[serve] {arch}: {n_tok} tokens in {report['seconds']:.3f}s: "
@@ -1096,7 +1177,11 @@ def profile_serving(arch):
     cfg = get_config(arch)
     prompt, cap = SERVING[arch]["prompt"], SERVING[arch]["capacity"]
     model = build_model(cfg)
-    loop = ServeLoop(model, model.init(seed=0, device=DEV),
+    # the loop serves bf16 copies: drawn in bf16 they are the fp32 draws
+    # rounded, and the fp32 tree (qwen2-moe-a2.7b's 57.3 GB) never
+    # sits beside them
+    loop = ServeLoop(model, model.init(seed=0, dtype=torch.bfloat16,
+                                       device=DEV),
                      num_slots=SLOTS, capacity=cap, max_new=MAX_NEW)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, size=prompt)
@@ -2906,6 +2991,194 @@ def fleet_smoke():
 
 
 # ---------------------------------------------------------------------------
+# phase 6f: the rest of the model registry
+# ---------------------------------------------------------------------------
+def _free_device():
+    """Collect until nothing is freed (the earlier planes hold their
+    states in reference cycles), then return the cached blocks."""
+    while gc.collect():
+        pass
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Each MoE layer's top-k ids (t, k), as `moe._route` returns them."""
+    from repro_torch.models import moe
+    ids, route = [], moe._route
+
+    def record(*args, **kwargs):
+        out = route(*args, **kwargs)
+        ids.append(out[1])
+        return out
+    moe._route = record
+    try:
+        yield ids
+    finally:
+        moe._route = route
+
+
+def family_logits(arch):
+    """Full-width prefill last-token logits of a FAM_PROMPT-token prompt,
+    kernel route vs plain route, bf16 compute, on parameters initialised
+    in bf16 (the fp32 init rounded: tests/test_torch_model.py), within
+    LOGIT_TOL; for a MoE model also the (token, k) routes that differ
+    between the two routes, per layer. Returns (error, flips per layer)."""
+    model = build_model(get_config(arch))
+    cfg = model.cfg
+    params = model.init(seed=0, dtype=torch.bfloat16, device=DEV)
+    x = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(1, FAM_PROMPT)), device=DEV)
+    with torch.no_grad():
+        reset_launches()
+        with _recorded_routes() as kernel_ids:
+            got, _, _ = model.prefill(params, x, FAM_CAP)
+        launches = launch_counts()
+        assert launches == expected_launches(cfg, 1, 0), launches
+        with _recorded_routes() as plain_ids:
+            want, _, _ = model.prefill(params, x, FAM_CAP, kernel_impl="ref")
+    torch.cuda.synchronize()
+    flips = [int((a != b).sum()) for a, b in zip(kernel_ids, plain_ids,
+                                                  strict=True)]
+    V = cfg.vocab_size
+    g, w = got[:, :V].float(), want[:, :V].float()
+    assert bool(torch.isfinite(g).all()), "non-finite logits"
+    err = float((g - w).abs().max())
+    moe = (f"; routes differing per layer (of {FAM_PROMPT} x "
+           f"{cfg.moe.top_k}): {flips}" if cfg.moe else "")
+    print(f"[families] {arch} full-width prefill last-token logits, kernel "
+          f"vs plain, bf16: max_abs_err={err:.4e} (|logit| max "
+          f"{float(w.abs().max()):.3f}) tol={LOGIT_TOL} argmax_equal="
+          f"{int(g.argmax()) == int(w.argmax())}{moe}")
+    assert err <= LOGIT_TOL, (err, flips)
+    return err, flips
+
+
+def hubert_encode():
+    """[families] (c): hubert-xlarge's `make_encode_step` at its published
+    config on (4, 1024, 1280) frames drawn from seed 0, bf16 parameters
+    and compute: one non-causal flash_attention launch per layer (48, the
+    prefill path at head_dim 80), ms per encode, the logits held to the
+    plain route's within LOGIT_TOL. Returns the launches."""
+    from repro_torch.serve.serve_step import make_encode_step
+    model = build_model(get_config(HUBERT))
+    cfg = model.cfg
+    params = model.init(seed=0, dtype=torch.bfloat16, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    frames = torch.randn(HU_FRAMES + (cfg.d_model,), generator=gen,
+                         device=DEV)
+    encode = make_encode_step(model)
+    with torch.no_grad():
+        reset_launches()
+        got = encode(params, frames)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        assert launches["flash_attention"] == cfg.num_layers == 48, launches
+        assert launches["flash_attention_combine"] == 0, launches
+        ms = _time_ms(lambda: encode(params, frames), [()], iters=5,
+                      warmup=1)
+        want, _ = model.apply(params, frames, kernel_impl="ref")
+    V = cfg.vocab_size
+    g, w = got[..., :V].float(), want[..., :V].float()
+    assert g.shape == HU_FRAMES + (V,) and bool(torch.isfinite(g).all())
+    err = float((g - w).abs().max())
+    flips = float((g.argmax(-1) != w.argmax(-1)).float().mean())
+    print(f"[families] (c) {HUBERT} encode {HU_FRAMES + (cfg.d_model,)} "
+          f"frames: {launches['flash_attention']} flash_attention launches "
+          f"(non-causal, head_dim 80); {ms:.3f} ms per encode (CUDA "
+          f"events, 5 calls); logits kernel vs plain max_abs_err={err:.4e} "
+          f"(|logit| max {float(w.abs().max()):.3f}) tol={LOGIT_TOL}, "
+          f"argmax differs at {100 * flips:.3f}% of frames")
+    assert err <= LOGIT_TOL, err
+    return launches["flash_attention"]
+
+
+def families_smoke():
+    """[families] (d): qwen3-moe-30b-a3b and chameleon-34b at smoke width
+    (vocabulary 64), the same weights on the card and on the CPU: the
+    forward (one flash_attention launch per layer on the card), then a
+    prefill and three decode steps teacher-forced on the CPU's tokens,
+    fp32 logits within FLEET_SMOKE_TOL, bf16 forward's gap printed. Then
+    the fleet decode step for a qwen2-moe smoke student, card vs CPU
+    (`fleet_step_smoke`)."""
+    f32 = torch.float32
+    for arch in FAM_SMOKE:
+        cfg = dataclasses.replace(smoke_config(arch), vocab_size=64)
+        model = build_model(cfg)
+        cpu = model.init(seed=0, device="cpu")
+        card = tree_map(lambda t: t.to(DEV), cpu)
+        x = torch.as_tensor(np.random.default_rng(2).integers(0, 64,
+                                                              size=(2, 24)))
+        gaps = {}
+        for dtype in (f32, torch.bfloat16):
+            want, _ = model.apply(cpu, x, compute_dtype=dtype)
+            before = flash_attention.launches
+            got, _ = model.apply(card, x.to(DEV), compute_dtype=dtype)
+            assert flash_attention.launches - before == cfg.num_layers
+            gaps[str(dtype)[6:]] = float(
+                (got.float().cpu() - want.float())[..., :64].abs().max())
+        kw = dict(compute_dtype=f32, cache_dtype=f32)
+        wl, wc, pos = model.prefill(cpu, x, 32, **kw)
+        gl, gc_, _ = model.prefill(card, x.to(DEV), 32, **kw)
+        worst = float((gl.cpu() - wl)[:, :64].abs().max())
+        tok = wl[:, :64].argmax(-1, keepdim=True)
+        for i in range(3):
+            wl, wc = model.decode(cpu, tok, wc, pos + i, compute_dtype=f32)
+            gl, gc_ = model.decode(card, tok.to(DEV), gc_, pos + i,
+                                   compute_dtype=f32)
+            worst = max(worst, float((gl.cpu() - wl)[..., :64].abs().max()))
+            tok = wl[:, -1, :64].argmax(-1, keepdim=True)
+        print(f"[families] (d) {arch} smoke, card vs CPU: forward logit gap "
+              f"fp32 {gaps['float32']:.3e}, bf16 {gaps['bfloat16']:.3e}; "
+              f"fp32 prefill + 3 decode steps {worst:.3e} (tol "
+              f"{FLEET_SMOKE_TOL:g})")
+        assert gaps["float32"] <= FLEET_SMOKE_TOL and worst <= \
+            FLEET_SMOKE_TOL, (gaps, worst)
+    fleet_step_smoke(QWEN2)
+
+
+def families():
+    """[families]: the registry beyond the three families served above.
+    (a) qwen2-moe-a2.7b at its published config through
+    `repro_torch.launch.serve.main` with olmo-1b's serving arguments
+    (`serve_full_width`: launches held to `expected_launches`, 24 a
+    prefill and 24 a decode call, ms per prefill and tick, tokens/s),
+    peak device memory beside its 57.3 GB of fp32 parameters, then
+    `family_logits` with its route flips; (b) llama3-8b, starcoder2-3b
+    and stablelm-3b the same way with 2 requests in 2 slots and 8 new
+    tokens; (c) `hubert_encode`; (d) `families_smoke`. (a) also profiles
+    a qwen2-moe prefill and decode ticks (`profile_serving`). Returns the
+    flash_attention launches and combines of (a)-(c)."""
+    _free_device()
+    print(f"[families] device memory in use at the start: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    total = collections.Counter(serve_full_width(QWEN2))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    n = build_model(get_config(QWEN2)).num_params()
+    print(f"[families] (a) {QWEN2}: {n / 1e9:.2f} B parameters, "
+          f"{4 * n / 1e9:.2f} GB in fp32 (reckoned {QWEN2_FP32_GB} GB); "
+          f"peak device memory over the launcher's run {peak:.2f} GB (the "
+          f"fp32 tree, its bf16 serving copy made leaf by leaf, the bf16 "
+          f"pool of {SLOTS} x {FAM_CAP})")
+    _free_device()
+    profile_serving(QWEN2)
+    _free_device()
+    family_logits(QWEN2)
+    for arch in FAM_DENSE:
+        _free_device()
+        total.update(serve_full_width(arch, FAM_SLOTS, FAM_SLOTS, FAM_NEW))
+        _free_device()
+        family_logits(arch)
+    _free_device()
+    total["flash_attention"] += hubert_encode()
+    _free_device()
+    families_smoke()
+    return total["flash_attention"], total["flash_attention_combine"]
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing
 # ---------------------------------------------------------------------------
 def _time_ms(fn, sets, iters=50, warmup=5):
@@ -2998,17 +3271,20 @@ def _bound(nbytes, flops, dtype, pk):
 
 
 def _attention_row(shape, sets, sdpa_sets, prefill, nbytes, flops, dtype,
-                   pk):
-    """Causal attention as serving calls it, by the kernel, the plain
-    version and SDPA (the yardstick the port never calls) on the same
-    inputs: per call (CUDA events) and on the device (the kernels of the
-    path `plan` picks, every kernel SDPA launches). SDPA's causal mask is
-    aligned top-left, so a decode row (S = 1, every key visible) calls it
-    without one."""
+                   pk, causal=True):
+    """Attention as serving calls it, by the kernel, the plain version
+    and SDPA (the yardstick the port never calls) on the same inputs: per
+    call (CUDA events) and on the device (the kernels of the path `plan`
+    picks, every kernel SDPA launches). SDPA's causal mask is aligned
+    top-left, so a decode row (S = 1, every key visible) calls it without
+    one; so does a non-causal encode (`causal` False)."""
     path = fa_plan(*sets[0]).path
 
     def kern(q, k, v):
-        return flash_attention(q, k, v)
+        return flash_attention(q, k, v, causal=causal)
+
+    def plain(q, k, v):
+        return attention_ref(q, k, v, causal=causal)
 
     def lib(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, is_causal=prefill)
@@ -3019,7 +3295,7 @@ def _attention_row(shape, sets, sdpa_sets, prefill, nbytes, flops, dtype,
         ms=_time_ms(kern, sets),
         device_ms=_device_ms(kern, sets, FA_KERNELS[path],
                              bound_ms=bound[0]),
-        plain_ms=_time_ms(attention_ref, sets),
+        plain_ms=_time_ms(plain, sets),
         library_ms=_time_ms(lib, sdpa_sets),
         library_device_ms=_device_ms(lib, sdpa_sets, bound_ms=bound[0]),
         bound=bound)
@@ -3107,6 +3383,16 @@ def time_attention(pk):
             library_device_ms=_device_ms(lib, lib_sets, bound_ms=bound[0]),
             bound=bound)
 
+    def encode(name, B, S, H, hd):
+        """A non-causal prefill of B sequences (hubert's encode): every
+        (query, key) pair of a sequence visible."""
+        sets = [tuple(_randn((B, S, H, hd), bf16, gen) for _ in range(3))
+                for _ in range(6)]
+        rows[name] = _attention_row(
+            f"q, k, v ({B},{S},{H},{hd}) bf16 non-causal", sets,
+            sdpa(sets), False, 4 * B * S * H * hd * 2,
+            4 * B * H * S * S * hd, bf16, pk, causal=False)
+
     prefill("prefill", PROMPT, 16, 16, 128, bf16)
     decode("decode", DECODE_T, CAP, 16, 16, 128, bf16)
     prefill("hymba_prefill", HY_S, 25, 5, 64, bf16)
@@ -3115,6 +3401,13 @@ def time_attention(pk):
     decode("decode_fp32_q", DECODE_T, CAP, 16, 16, 128, f32)
     ragged("decode_ragged", CAP, 16, 16, 128)
     ragged("hymba_decode_ragged", HY_CAP, 25, 5, 64)
+    # [families] (a): qwen2-moe-a2.7b's attention is olmo-1b's shape
+    # (16 heads of 128, 512-token prompts, 4 slots of 1024), timed again
+    # under its own name; hubert-xlarge's encode
+    prefill("qwen2moe_prefill", SERVING[QWEN2]["prompt"], 16, 16, 128, bf16)
+    decode("qwen2moe_decode", DECODE_T, SERVING[QWEN2]["capacity"], 16, 16,
+           128, bf16)
+    encode("hubert_encode", HU_FRAMES[0], HU_FRAMES[1], 16, 80)
     for name, r in rows.items():
         _print_time(f"flash_attention {name}", r)
     return rows
@@ -3432,6 +3725,8 @@ def main():
     torch.cuda.empty_cache()
     phase("fleet smoke", fleet_smoke)
     torch.cuda.empty_cache()
+    fam = phase("families", families)
+    torch.cuda.empty_cache()
     att = phase("time flash_attention", time_attention, pk)
     phase("sweep flash_attention plans", sweep_attention_plans)
     fd = phase("time fleet_drift", time_fleet_drift, pk, windows, refs)
@@ -3458,7 +3753,10 @@ def main():
                     prefill_fp32=att["prefill_fp32"],
                     decode_fp32_q=att["decode_fp32_q"],
                     decode_ragged=att["decode_ragged"],
-                    hymba_decode_ragged=att["hymba_decode_ragged"]),
+                    hymba_decode_ragged=att["hymba_decode_ragged"],
+                    qwen2moe_prefill=att["qwen2moe_prefill"],
+                    qwen2moe_decode=att["qwen2moe_decode"],
+                    hubert_encode=att["hubert_encode"]),
              combine_launches=launches["flash_attention_combine"],
              hymba_launches=hymba["flash_attention"],
              hymba_combine_launches=hymba["flash_attention_combine"],
@@ -3466,6 +3764,7 @@ def main():
              window_launches=window["flash_attention"],
              meter_launches=meter["flash_attention"],
              fleet_launches=fleet[0], fleet_combine_launches=fleet[1],
+             families_launches=fam[0], families_combine_launches=fam[1],
              tensor_core_hmma=hmma),
         dict(_entry("fleet_drift", *src["fleet_drift"],
                     launches["fleet_drift"], err["fleet_drift"], fd),

@@ -2,9 +2,9 @@
 
 Each architecture lives in its own module with the exact published
 dimensions; `smoke_config()` returns a reduced same-family variant used by
-CPU tests. The port registers olmo-1b (dense), hymba-1.5b (hybrid) and
-xlstm-350m (the xLSTM family); the other architectures of the JAX
-package's registry arrive with their model families (ROADMAP.md).
+CPU tests. The registry is the JAX package's, in its order: the dense,
+MoE, hybrid, xLSTM, encoder and VLM families. (Its `SHAPES` and
+`cell_is_runnable` belong to the dry run, ROADMAP.md queue 1 item 10.)
 """
 from __future__ import annotations
 
@@ -15,8 +15,15 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES: Dict[str, str] = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
-    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "llama3-8b": "repro_torch.configs.llama3_8b",
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -215,20 +215,24 @@ class CostTable:
         cfg = model.cfg
         params = _meta(model.spec, torch.float32)    # master rows
         toks = torch.empty((batch, seq), dtype=torch.int32, device="meta")
+        # an embedding frontend (hubert) takes frame embeddings for tokens
+        inputs = (torch.empty((batch, seq, cfg.d_model), dtype=cd,
+                              device="meta")
+                  if cfg.embedding_frontend else toks)
         if kind == "train":
             from repro_torch.train.train_step import make_loss_fn
             tcfg = TrainConfig(remat="none",
                                compute_dtype=str(cd).split(".")[-1])
             loss_fn = make_loss_fn(model, tcfg)
             torch.func.grad_and_value(loss_fn, has_aux=True)(
-                params, {"inputs": toks, "labels": toks})
+                params, {"inputs": inputs, "labels": toks})
             return
         with torch.no_grad():
             if kind == "eval":
-                model.apply(params, toks, compute_dtype=cd,
+                model.apply(params, inputs, compute_dtype=cd,
                             kernel_impl="ref")
             elif kind == "prefill":
-                model.prefill(params, toks, seq + cfg.meta_tokens,
+                model.prefill(params, inputs, seq + cfg.meta_tokens,
                               compute_dtype=cd, kernel_impl="ref")
             else:
                 cap = seq + cfg.meta_tokens

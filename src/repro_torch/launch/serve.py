@@ -10,6 +10,12 @@ using the slot-pool KV cache, on the GPU.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
         --full --requests 8 --num-slots 4 --prompt-len 1024 --max-new 32 \
         --capacity 1056
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen2-moe-a2.7b --full --requests 8 --num-slots 4 \
+        --prompt-len 512 --max-new 32 --capacity 1024
+
+`--arch` takes every decoder of the registry (`repro_torch.configs`);
+hubert-xlarge, encoder-only, has no decode step and is refused.
 
 `--fleet` serves the same requests through the fleet serving plane
 instead (`repro_torch.serve.plane`): two group models from seeds 0 and 1
@@ -29,7 +35,10 @@ grow with it, but admission still checks it. Without `--full` it serves the
 smoke-scale config (vocabulary capped at 256), as the JAX launcher does;
 `--full` serves the published config. It
 runs on CUDA unless `--device cpu` is given, and raises when CUDA is
-missing. Weights are random, drawn from `--seed`.
+missing. Weights are random, drawn from `--seed`, in fp32; the serving
+copy in the compute dtype replaces them leaf by leaf, so the fp32 tree
+and its copy are never held together (qwen2-moe-a2.7b's fp32 parameters
+alone are 57.3 GB).
 """
 from __future__ import annotations
 
@@ -38,12 +47,28 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 
 
+def _to_dtype_in_place(tree, dtype):
+    """Cast every leaf of a params tree to `dtype` inside the tree itself,
+    one leaf at a time, so each fp32 leaf is freed before the next cast."""
+    for key, val in (tree.items() if isinstance(tree, dict)
+                     else enumerate(tree)):
+        if isinstance(val, (dict, list)):
+            _to_dtype_in_place(val, dtype)
+        else:
+            tree[key] = val.to(dtype)
+    return tree
+
+
 def _run_single(args, model, params, pending):
     from repro_torch.serve.kvcache import ServeLoop
+
+    # the loop serves in bf16: its copy replaces the fp32 leaves in place
+    _to_dtype_in_place(params, torch.bfloat16)
 
     loop = ServeLoop(model, params, num_slots=args.num_slots,
                      capacity=args.capacity, max_new=args.max_new)
@@ -116,7 +141,10 @@ def _run_fleet(args, cfg, engine, pending):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="olmo-1b",
-                    help="olmo-1b, hymba-1.5b or xlstm-350m")
+                    help="a decoder of the registry: olmo-1b, stablelm-3b, "
+                         "llama3-8b, starcoder2-3b, xlstm-350m, "
+                         "qwen3-moe-30b-a3b, qwen2-moe-a2.7b, hymba-1.5b "
+                         "or chameleon-34b")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--num-slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=24)
@@ -140,6 +168,10 @@ def main(argv=None):
         cfg = get_config(args.arch)
     else:
         cfg = smoke_config(args.arch)
+    if not cfg.has_decode:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode step "
+                         "(see DESIGN.md §Arch-applicability)")
+    if not args.full:
         cfg = dataclasses.replace(cfg, vocab_size=min(cfg.vocab_size, 256))
 
     rng = np.random.default_rng(args.seed)

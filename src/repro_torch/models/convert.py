@@ -18,9 +18,15 @@ from repro_torch import resolve_device
 def params_from_numpy(tree, *, device="cuda"):
     """Nested dicts/lists of numpy arrays -> the same tree of tensors on
     `device`, in the arrays' own dtype. The layouts are the same in both
-    packages: `embed.table`, `segments[i]` stacked on a leading layer
-    axis, `attn.{wq,wk,wv,wo}`, `mlp.{w_gate,w_up,w_down}`, the Mamba and
-    the mLSTM / sLSTM leaves under their blocks' keys."""
+    packages, leaf for leaf: `embed.table` (V, D) and, untied,
+    `embed.unembed` (D, V); `meta` (M, D); `segments[i]` stacked on a
+    leading layer axis; `attn.{wq,wk,wv}` (D, H|K, hd), `attn.wo`
+    (H, hd, D), qk-norm's `attn.{q_norm,k_norm}` (hd,);
+    `mlp.{w_gate,w_up,w_down}` (SwiGLU) or `mlp.{w_in,w_down}` (GELU);
+    MoE's `moe.router` (D, E), `moe.{wg,wu}` (E, D, F), `moe.wd`
+    (E, F, D), `moe.{shared_wg,shared_wu}` (D, Fs), `moe.shared_wd`
+    (Fs, D), `moe.shared_gate` (D, 1); the Mamba and the mLSTM / sLSTM
+    leaves under their blocks' keys."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device=dev) for k, v in tree.items()}

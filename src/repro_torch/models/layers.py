@@ -1,7 +1,8 @@
 """Transformer layers of the ported families: norms (LayerNorm with or
-without an affine, RMSNorm), RoPE, attention (full, sliding window with an
-always-visible meta-token prefix, decode against a full or ring cache), the
-SwiGLU MLP, tied or untied embedding and unembedding.
+without an affine, RMSNorm, the per-head RMS qk-norm), RoPE, attention
+(full, causal or not, sliding window with an always-visible meta-token
+prefix, decode against a full or ring cache), the SwiGLU and GELU MLPs,
+tied or untied embedding and unembedding.
 
 Mirrors the JAX package's `models/layers.py` at the same names and
 layouts: activations (B, S, D) or (B, S, H, hd), wq (D, H, hd),
@@ -10,10 +11,9 @@ when the caller already holds them in it); norms and softmax run in fp32.
 Full attention goes through `kernels.ops.attention`: the Hopper kernel
 for CUDA tensors, the plain version for CPU tensors. Windowed attention
 (blockwise window plus meta prefix) and ring-cache decode are plain
-PyTorch, as the JAX package runs them in XLA. GELU, qk-norm and
-tensor-parallel head padding of the JAX module arrive with the families
-that use them (ROADMAP.md, queue 1); `transformer.check_ported` refuses
-such configs.
+PyTorch, as the JAX package runs them in XLA. Tensor-parallel head
+padding of the JAX module waits for distribution (ROADMAP.md queue 1 item
+9); `transformer.check_ported` refuses it.
 """
 from __future__ import annotations
 
@@ -61,6 +61,13 @@ def apply_norm(cfg: ModelConfig, params, x, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
+def rms_head_norm(x, scale, eps: float = 1e-6):
+    """qk-norm: RMS-normalize over head_dim in fp32 (chameleon / qwen3)."""
+    xf = x.to(F32)
+    ms = xf.pow(2).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.to(F32)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -88,12 +95,16 @@ def apply_rope(x, positions, theta: float):
 def attention_spec(cfg: ModelConfig):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
-    return {
+    spec = {
         "wq": Spec((d, H, hd)),
         "wk": Spec((d, K, hd)),
         "wv": Spec((d, K, hd)),
         "wo": Spec((H, hd, d), scale=1.0 / math.sqrt(2 * cfg.num_layers)),
     }
+    if cfg.qk_norm:
+        spec["q_norm"] = Spec((hd,), "ones")
+        spec["k_norm"] = Spec((hd,), "ones")
+    return spec
 
 
 def _proj(x, w):
@@ -102,12 +113,24 @@ def _proj(x, w):
     return (x @ w.to(x.dtype).reshape(D, N * hd)).unflatten(-1, (N, hd))
 
 
+def uses_rope(cfg: ModelConfig) -> bool:
+    """The JAX package's rule: RoPE only in causal non-encoder models
+    with a rope_theta."""
+    return bool(cfg.rope_theta) and cfg.family != "encoder" and cfg.causal
+
+
 def _qkv(cfg: ModelConfig, p, x, positions):
+    """The projections, then qk-norm (where the config has it), then
+    RoPE (under `uses_rope`)."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"])
+        k = rms_head_norm(k, p["k_norm"])
+    if uses_rope(cfg):
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -325,14 +348,20 @@ def decode_attend(q, k, v, cache, ln: Lanes, *, window: int, meta: int,
 # ---------------------------------------------------------------------------
 def mlp_spec(cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": Spec((d, f)),
-            "w_up": Spec((d, f)),
-            "w_down": Spec((f, d), scale=1.0 / math.sqrt(2 * cfg.num_layers))}
+    down = Spec((f, d), scale=1.0 / math.sqrt(2 * cfg.num_layers))
+    if cfg.act == "swiglu":
+        return {"w_gate": Spec((d, f)), "w_up": Spec((d, f)),
+                "w_down": down}
+    return {"w_in": Spec((d, f)), "w_down": down}
 
 
 def apply_mlp(cfg: ModelConfig, p, x):
+    """SwiGLU, or GELU with jax.nn.gelu's default tanh approximation."""
     dt = x.dtype
-    h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+    else:
+        h = F.gelu(x @ p["w_in"].to(dt), approximate="tanh")
     return h @ p["w_down"].to(dt)
 
 

@@ -7,8 +7,11 @@
     logits, cache = model.decode(params, token, cache, pos)
 
 Parameters and caches are nested dicts of tensors on one device; compute
-runs where they lie. `init` and `init_cache` default to CUDA and raise
-when it is missing (pass device="cpu" for the CPU).
+runs where they lie. `capacity_factor` sets a MoE model's per-expert
+capacity, as in the JAX package; `moe_impl` is "dense" (expert
+parallelism, "ep", waits for distribution and raises). `init` and
+`init_cache` default to CUDA and raise when it is missing (pass
+device="cpu" for the CPU).
 """
 from __future__ import annotations
 
@@ -40,24 +43,33 @@ class Model:
 
     # ---- compute ----------------------------------------------------------
     def apply(self, params, inputs, *, compute_dtype=torch.bfloat16,
-              kernel_impl: str = "auto"):
+              kernel_impl: str = "auto", capacity_factor: float = 1.25,
+              moe_impl: str = "dense"):
+        T.check_ported(moe_impl=moe_impl)
         logits, aux, _ = T.forward(self.cfg, params, inputs,
                                    compute_dtype=compute_dtype,
-                                   kernel_impl=kernel_impl)
+                                   kernel_impl=kernel_impl,
+                                   capacity_factor=capacity_factor)
         return logits, aux
 
     def prefill(self, params, inputs, cap: int, *,
                 compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
-                kernel_impl: str = "auto"):
+                kernel_impl: str = "auto", capacity_factor: float = 1.25,
+                moe_impl: str = "dense"):
+        T.check_ported(moe_impl=moe_impl)
         return T.prefill(self.cfg, params, inputs, cap,
                          compute_dtype=compute_dtype,
-                         cache_dtype=cache_dtype, kernel_impl=kernel_impl)
+                         cache_dtype=cache_dtype, kernel_impl=kernel_impl,
+                         capacity_factor=capacity_factor)
 
     def decode(self, params, token, cache, pos, *,
-               compute_dtype=torch.bfloat16, kernel_impl: str = "auto"):
+               compute_dtype=torch.bfloat16, kernel_impl: str = "auto",
+               capacity_factor: float = 1.25, moe_impl: str = "dense"):
+        T.check_ported(moe_impl=moe_impl)
         return T.decode_step(self.cfg, params, token, cache, pos,
                              compute_dtype=compute_dtype,
-                             kernel_impl=kernel_impl)
+                             kernel_impl=kernel_impl,
+                             capacity_factor=capacity_factor)
 
     # ---- cache ------------------------------------------------------------
     def cache_spec(self, batch: int, cap: int):
@@ -80,5 +92,7 @@ class Model:
         return P.tree_map(leaf, self.cache_spec(batch, cap))
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg=cfg, spec=T.build_spec(cfg))
+def build_model(cfg: ModelConfig, *, ep: int = 1, tp: int = 1) -> Model:
+    """`ep` / `tp` other than 1 (expert and head padding for a sharded
+    model) raise until distribution is ported."""
+    return Model(cfg=cfg, spec=T.build_spec(cfg, ep=ep, tp=tp))

@@ -1,5 +1,5 @@
-"""Model assembly for the dense, hybrid and xLSTM (SSM) families: layer
-plan, spec trees, forward / prefill / decode.
+"""Model assembly for every family of the registry (dense, MoE, hybrid,
+xLSTM, encoder, VLM): layer plan, spec trees, forward / prefill / decode.
 
 Mirrors the JAX package's `models/transformer.py`. A model is a sequence
 of segments whose parameters are stacked on a leading layer axis
@@ -11,9 +11,13 @@ same normed input and mixes their RMS-normed outputs, and meta tokens are
 prepended to every sequence. The xLSTM family alternates mLSTM and sLSTM
 blocks (`models/xlstm.py`), one segment per run of each kind; its prefill
 builds the recurrent decode cache (`_prefill_recurrent`) and its decode
-ignores the position. What the ported configs do not use (MoE, GELU in an
-attention MLP, qk-norm, an embedding frontend, non-causal attention)
-arrives with the slices that need it (ROADMAP.md, queue 1).
+ignores the position. A MoE block replaces the MLP with `models/moe.py`'s
+dense dispatch and sums its load-balance loss over the layers into `aux`;
+an encoder (hubert) attends without a causal mask and without RoPE and,
+like any config with `embedding_frontend`, takes float frame embeddings
+(B, S, d_model) for tokens. Expert parallelism (`moe_impl="ep"`) and
+tensor / expert padding wait for distribution (ROADMAP.md queue 1 item 9;
+`check_ported`).
 
 `kernel_impl` ("auto" or "ref") is handed to every kernel op of a call:
 "ref" runs the plain versions on any device (the card's kernel-vs-plain
@@ -26,33 +30,27 @@ from typing import List
 
 import torch
 
-from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
+from repro_torch.configs.base import HYBRID, MOE, SSM, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.param import Spec, tree_map
 
 
-def check_ported(cfg: ModelConfig):
-    """Raise NotImplementedError for a config that uses anything the port
-    does not have yet. The xLSTM blocks never read `cfg.act`, so the SSM
-    family passes with the "gelu" its configs name."""
+def check_ported(*, ep: int = 1, tp: int = 1, moe_impl: str = "dense"):
+    """Raise NotImplementedError for what the port does not have yet:
+    expert parallelism and the tensor / expert padding of a sharded
+    model, all of distribution."""
     missing = [what for what, absent in [
-        (f"family {cfg.family!r}", cfg.family not in (DENSE, HYBRID, SSM)),
-        ("MoE", cfg.moe is not None),
-        (f"norm {cfg.norm!r}",
-         cfg.norm not in ("nonparam_ln", "rmsnorm", "layernorm")),
-        (f"activation {cfg.act!r}",
-         cfg.act != "swiglu" and not (cfg.family == SSM
-                                      and cfg.act == "gelu")),
-        ("qk-norm", cfg.qk_norm),
-        ("non-causal attention", not cfg.causal),
-        ("an embedding frontend", cfg.embedding_frontend),
+        (f"moe_impl={moe_impl!r}", moe_impl != "dense"),
+        (f"expert padding (ep={ep})", ep != 1),
+        (f"tensor-parallel head padding (tp={tp})", tp != 1),
     ] if absent]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet "
-            f"(ROADMAP.md, queue 1)")
+            f"{', '.join(missing)} not ported yet (ROADMAP.md queue 1 "
+            f"item 9, distribution)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,8 +98,11 @@ def _block_spec(cfg: ModelConfig):
         "ln1": L.norm_spec(cfg),
         "attn": L.attention_spec(cfg),
         "ln2": L.norm_spec(cfg),
-        "mlp": L.mlp_spec(cfg),
     }
+    if cfg.family == MOE:
+        spec["moe"] = moe_lib.moe_spec(cfg)
+    else:
+        spec["mlp"] = L.mlp_spec(cfg)
     if cfg.family == HYBRID:
         spec["mamba"] = ssm_lib.mamba_spec(cfg)
         spec["mix_a"] = Spec((cfg.d_model,), "ones")
@@ -109,9 +110,10 @@ def _block_spec(cfg: ModelConfig):
     return spec
 
 
-def build_spec(cfg: ModelConfig):
-    """Full parameter spec tree of an architecture."""
-    check_ported(cfg)
+def build_spec(cfg: ModelConfig, *, ep: int = 1, tp: int = 1):
+    """Full parameter spec tree of an architecture (`ep` and `tp` other
+    than 1 raise until distribution is ported)."""
+    check_ported(ep=ep, tp=tp)
     spec = {"embed": L.embedding_spec(cfg),
             "final_norm": L.norm_spec(cfg)}
     if cfg.meta_tokens:
@@ -223,8 +225,18 @@ def _mix(cfg: ModelConfig, p, x, attn_out, ssm_out):
     return x + 0.5 * (na + ns)
 
 
+def _ffn(cfg: ModelConfig, p, h2, capacity_factor: float):
+    """The block's second half on the normed residual: the MLP, or (MoE)
+    the dense expert dispatch. Returns (y, aux)."""
+    if cfg.family == MOE:
+        return moe_lib.apply_moe_dense(cfg, p["moe"], h2,
+                                       capacity_factor=capacity_factor)
+    return L.apply_mlp(cfg, p["mlp"], h2), None
+
+
 def _block_forward(cfg: ModelConfig, p, x, positions, *, window: int,
-                   collect_cache: bool, kernel_impl: str):
+                   collect_cache: bool, kernel_impl: str,
+                   capacity_factor: float):
     h = L.apply_norm(cfg, p["ln1"], x)
     if window > 0:
         attn_out, (k, v) = L.attention_windowed(
@@ -232,7 +244,7 @@ def _block_forward(cfg: ModelConfig, p, x, positions, *, window: int,
             meta=cfg.meta_tokens)
     else:
         attn_out, (k, v) = L.attention_full(cfg, p["attn"], h, positions,
-                                            causal=True,
+                                            causal=cfg.causal,
                                             kernel_impl=kernel_impl)
     cache = {"k": k, "v": v} if collect_cache else None
     ssm_out = None
@@ -245,12 +257,12 @@ def _block_forward(cfg: ModelConfig, p, x, positions, *, window: int,
         else:
             ssm_out = res
     x = _mix(cfg, p, x, attn_out, ssm_out)
-    h2 = L.apply_norm(cfg, p["ln2"], x)
-    return x + L.apply_mlp(cfg, p["mlp"], h2), cache
+    y, aux = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x), capacity_factor)
+    return x + y, cache, aux
 
 
 def _block_decode(cfg: ModelConfig, p, x, cache, pos, *, window: int,
-                  kernel_impl: str):
+                  kernel_impl: str, capacity_factor: float):
     h = L.apply_norm(cfg, p["ln1"], x)
     attn_out, _ = L.attention_decode(cfg, p["attn"], h, cache, pos,
                                      window=window, meta=cfg.meta_tokens,
@@ -260,24 +272,34 @@ def _block_decode(cfg: ModelConfig, p, x, cache, pos, *, window: int,
         ssm_out, _ = ssm_lib.apply_mamba_step(cfg, p["mamba"], h,
                                               cache["mamba"])
     x = _mix(cfg, p, x, attn_out, ssm_out)
-    h2 = L.apply_norm(cfg, p["ln2"], x)
-    return x + L.apply_mlp(cfg, p["mlp"], h2)
+    y, _ = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x), capacity_factor)
+    return x + y
 
 
 # ---------------------------------------------------------------------------
 # Public model functions
 # ---------------------------------------------------------------------------
+def _embed(cfg: ModelConfig, params, inputs, compute_dtype):
+    """Token ids (B,S) through the table, or (embedding frontend) float
+    embeddings (B,S,D) cast to the compute dtype."""
+    if cfg.embedding_frontend:
+        return inputs.to(compute_dtype)
+    return L.embed_tokens(params["embed"], inputs, compute_dtype)
+
+
 def forward(cfg: ModelConfig, params, inputs, *,
             compute_dtype=torch.bfloat16, collect_cache: bool = False,
-            kernel_impl: str = "auto"):
-    """Full-sequence forward. inputs: int tokens (B,S). Meta tokens are
-    prepended internally and stripped from the logits.
-    Returns (logits (B,S,V), aux, caches|None); aux is 0 for these
-    families, caches (attention families only: the xLSTM prefill builds
+            kernel_impl: str = "auto", capacity_factor: float = 1.25):
+    """Full-sequence forward. inputs: int tokens (B,S), or float embeds
+    (B,S,D) when cfg.embedding_frontend. Meta tokens are prepended
+    internally and stripped from the logits.
+    Returns (logits (B,S,V), aux, caches|None); aux is the MoE
+    load-balance loss summed over the layers (0 for the other families),
+    caches (attention families only: the xLSTM prefill builds
     its recurrent cache in `_prefill_recurrent`) a list per segment of
     {"k","v": (n,B,S+meta,K,hd)} [+ "mamba": {"conv","state"} stacked over
     the segment's layers]."""
-    x = L.embed_tokens(params["embed"], inputs, compute_dtype)
+    x = _embed(cfg, params, inputs, compute_dtype)
     B = x.shape[0]
     meta = cfg.meta_tokens
     if meta:
@@ -285,6 +307,7 @@ def forward(cfg: ModelConfig, params, inputs, *,
             B, meta, cfg.d_model), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for seg, segp in zip(layer_plan(cfg), params["segments"]):
         layer_caches = []
@@ -295,16 +318,17 @@ def forward(cfg: ModelConfig, params, inputs, *,
             elif seg.kind == "slstm":
                 x, c = xlstm_lib.apply_slstm_block(cfg, lp, x)
             else:
-                x, c = _block_forward(cfg, lp, x, positions,
-                                      window=seg.window,
-                                      collect_cache=collect_cache,
-                                      kernel_impl=kernel_impl)
+                x, c, aux_l = _block_forward(
+                    cfg, lp, x, positions, window=seg.window,
+                    collect_cache=collect_cache, kernel_impl=kernel_impl,
+                    capacity_factor=capacity_factor)
+                if aux_l is not None:
+                    aux = aux + aux_l
             layer_caches.append(c)
         if collect_cache:
             caches.append(_stack_layers(layer_caches))
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(cfg, params["embed"], x[:, meta:])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, (caches if collect_cache else None)
 
 
@@ -318,7 +342,7 @@ def _stack_layers(trees):
 
 def prefill(cfg: ModelConfig, params, inputs, cap: int, *,
             compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
-            kernel_impl: str = "auto"):
+            kernel_impl: str = "auto", capacity_factor: float = 1.25):
     """Run the full prompt and build a decode cache of static capacity
     `cap` (absolute positions, meta tokens included). K/V go to the cache
     in `cache_dtype`; the Mamba cache keeps its conv rows in the compute
@@ -332,7 +356,8 @@ def prefill(cfg: ModelConfig, params, inputs, cap: int, *,
     logits, _, kv_caches = forward(cfg, params, inputs,
                                    compute_dtype=compute_dtype,
                                    collect_cache=True,
-                                   kernel_impl=kernel_impl)
+                                   kernel_impl=kernel_impl,
+                                   capacity_factor=capacity_factor)
     S_tot = inputs.shape[1] + cfg.meta_tokens
     segs = []
     for seg, kv in zip(layer_plan(cfg), kv_caches):
@@ -395,14 +420,18 @@ def _prefill_recurrent(cfg: ModelConfig, params, inputs, *, compute_dtype,
 
 
 def decode_step(cfg: ModelConfig, params, token, cache, pos, *,
-                compute_dtype=torch.bfloat16, kernel_impl: str = "auto"):
+                compute_dtype=torch.bfloat16, kernel_impl: str = "auto",
+                capacity_factor: float = 1.25):
     """One-token decode. token: (B,1) int; pos: absolute position of the
     token (meta tokens included; the xLSTM family does not read it), an
     int for the batch or a (B,) int tensor on the device, one per lane:
     each lane then takes its own RoPE position, writes its K/V row at its
     own position and attends to its own prefix (`layers.decode_attend`).
-    The cache is updated in place.
+    The cache is updated in place. A MoE block routes the B tokens
+    together, with the reference's capacity drops.
     Returns (logits (B,1,V), cache)."""
+    if cfg.embedding_frontend:
+        raise ValueError("encoder-only arch has no decode step")
     x = L.embed_tokens(params["embed"], token, compute_dtype)
     for seg, segp, segc in zip(layer_plan(cfg), params["segments"],
                                cache["segments"]):
@@ -414,7 +443,8 @@ def decode_step(cfg: ModelConfig, params, token, cache, pos, *,
                 x, _ = xlstm_lib.apply_slstm_block(cfg, lp, x, cache=lc)
             else:
                 x = _block_decode(cfg, lp, x, lc, pos, window=seg.window,
-                                  kernel_impl=kernel_impl)
+                                  kernel_impl=kernel_impl,
+                                  capacity_factor=capacity_factor)
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(cfg, params["embed"], x)
     return logits, cache

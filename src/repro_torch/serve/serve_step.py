@@ -1,8 +1,9 @@
 """Serving step factories, as in the JAX package's `serve/serve_step.py`:
 prefill (prompt -> cache + first token), decode (one token against a
-static-capacity cache) and the fleet decode (one token for lanes that
-query different group models at different positions). Greedy sampling,
-argmax in fp32.
+static-capacity cache), the fleet decode (one token for lanes that
+query different group models at different positions) and the encode step
+of encoder-only archs (frames -> logits). Greedy sampling, argmax in
+fp32.
 """
 from __future__ import annotations
 
@@ -11,8 +12,9 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import HYBRID
+from repro_torch.configs.base import HYBRID, MOE
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as T
 from repro_torch.models import xlstm as xlstm_lib
@@ -39,6 +41,15 @@ def make_decode_step(model: Model, *, compute_dtype=torch.bfloat16):
         return nxt[:, None], new_cache
 
     return decode_step
+
+
+def make_encode_step(model: Model, *, compute_dtype=torch.bfloat16):
+    """Encoder-only archs: the full-sequence forward, returning logits."""
+    def encode_step(params, inputs):
+        logits, _ = model.apply(params, inputs, compute_dtype=compute_dtype)
+        return logits
+
+    return encode_step
 
 
 def make_fleet_decode_step(model: Model, *, compute_dtype=torch.bfloat16):
@@ -68,7 +79,10 @@ def make_fleet_decode_step(model: Model, *, compute_dtype=torch.bfloat16):
     attention call over all lanes, each with its own key length
     (`layers.decode_attend`). Per-lane math is the B=1 decode's, so the
     tokens are those of decoding each slot alone (tests/test_torch_fleet_
-    decode.py: exactly in fp32, under the lead rule in bf16)."""
+    decode.py: exactly in fp32, under the lead rule in bf16). A MoE block
+    routes each lane as the B=1 decode does, alone, where no pair drops
+    (`moe.apply_moe_dropless`), not with the capacity of the group's
+    lanes taken together."""
     def fleet_decode_step(params_stack, rows, tokens, cache, pos,
                           slots=None):
         logits, cache = fleet_decode_logits(
@@ -166,17 +180,23 @@ def fleet_decode_logits(model: Model, params_stack, rows, tokens, cache, pos,
 
 def _fleet_block(cfg, lps, spans, sel, x, lc, ln, *, window):
     """One attention-family block over every lane: per group the norms,
-    projections, Mamba step and MLP on its row's weights; RoPE (which
-    reads no weights) and one attention call for all lanes."""
+    projections, qk-norm, Mamba step and MLP (or MoE) on its row's
+    weights; RoPE (which reads no weights) and one attention call for all
+    lanes."""
     hs, qkv = [], []
     for lp, (_, a, b) in zip(lps, spans):
         h = L.apply_norm(cfg, lp["ln1"], x[a:b])
         hs.append(h)
-        qkv.append([L._proj(h, lp["attn"][w]) for w in ("wq", "wk", "wv")])
+        q, k, v = (L._proj(h, lp["attn"][w]) for w in ("wq", "wk", "wv"))
+        if cfg.qk_norm:
+            q = L.rms_head_norm(q, lp["attn"]["q_norm"])
+            k = L.rms_head_norm(k, lp["attn"]["k_norm"])
+        qkv.append((q, k, v))
     q, k, v = (_cat([t[i] for t in qkv]) for i in range(3))
-    pos = ln.pos[:, None]
-    q = L.apply_rope(q, pos, cfg.rope_theta)
-    k = L.apply_rope(k, pos, cfg.rope_theta)
+    if L.uses_rope(cfg):
+        pos = ln.pos[:, None]
+        q = L.apply_rope(q, pos, cfg.rope_theta)
+        k = L.apply_rope(k, pos, cfg.rope_theta)
     o = L.decode_attend(q, k, v, lc, ln, window=window, meta=cfg.meta_tokens)
     outs = []
     for lp, h, s, (_, a, b) in zip(lps, hs, sel, spans):
@@ -188,8 +208,10 @@ def _fleet_block(cfg, lps, spans, sel, x, lc, ln, *, window):
             ssm_out, _ = ssm_lib.apply_mamba_step(cfg, lp["mamba"], h, mc)
             write_back()
         xg = T._mix(cfg, lp, xg, attn_out, ssm_out)
-        outs.append(xg + L.apply_mlp(cfg, lp["mlp"],
-                                     L.apply_norm(cfg, lp["ln2"], xg)))
+        h2 = L.apply_norm(cfg, lp["ln2"], xg)
+        outs.append(xg + (moe_lib.apply_moe_dropless(cfg, lp["moe"], h2)
+                          if cfg.family == MOE
+                          else L.apply_mlp(cfg, lp["mlp"], h2)))
     return _cat(outs)
 
 

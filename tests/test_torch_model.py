@@ -204,11 +204,39 @@ def test_init_cache_defaults_to_bf16(models):
     dict(family="moe"), dict(act="gelu"), dict(qk_norm=True)],
     ids=["family", "act", "qk_norm"])
 def test_unported_configs_raise(change):
-    """A config that uses anything the port does not have yet is refused
-    with a pointer to the ROADMAP, never served wrongly."""
-    cfg = dataclasses.replace(smoke_config("olmo-1b"), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
+    """olmo smoke with one feature the port once refused, now ported: the
+    MoE family (with a MoE config, d_ff 0), the GELU MLP, qk-norm. The
+    forward logits and the MoE load-balance loss equal the JAX package's
+    on the same weights (fp32). What the port still lacks (expert
+    parallelism, tensor / expert padding) is refused with a pointer to
+    the ROADMAP's item 9."""
+    from repro.configs.base import MoEConfig as JMoEConfig
+    from repro_torch.configs.base import MoEConfig
+    jchange = dict(change)
+    if change.get("family") == "moe":
+        moe = dict(num_experts=4, top_k=2, d_ff_expert=32,
+                   num_shared_experts=1, d_ff_shared=48)
+        change = dict(change, d_ff=0, moe=MoEConfig(**moe))
+        jchange = dict(jchange, d_ff=0, moe=JMoEConfig(**moe))
+    jcfg = dataclasses.replace(jax_smoke_config("olmo-1b"),
+                               vocab_size=VOCAB, **jchange)
+    cfg = dataclasses.replace(smoke_config("olmo-1b"), vocab_size=VOCAB,
+                              **change)
+    jm, tm = jax_build_model(jcfg), build_model(cfg)
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    toks = _tokens((2, 12), seed=6)
+    (want, jaux) = jax.jit(lambda p, t: jm.apply(
+        p, t, compute_dtype=jnp.float32))(jp, jnp.asarray(toks))
+    got, aux = tm.apply(tp, torch.from_numpy(toks),
+                        compute_dtype=torch.float32)
+    np.testing.assert_allclose(_np(got)[..., :VOCAB], _np(want)[..., :VOCAB],
+                               atol=FP32_TOL, rtol=0)
+    assert float(aux) == pytest.approx(float(jaux), abs=FP32_TOL)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
+        build_model(cfg, tp=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
+        tm.apply(tp, torch.from_numpy(toks), moe_impl="ep")
 
 
 @pytest.mark.parametrize("change", [
@@ -248,3 +276,29 @@ def test_cuda_entry_points_raise_without_cuda(monkeypatch):
         tm.init_cache(1, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_numpy({"w": np.zeros(3, np.float32)})
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-moe-a2.7b"])
+def test_init_scales_in_place_to_the_formulas_values(arch):
+    """`init` scales each truncated-normal draw in place (the largest leaf
+    is never held twice); a seed still gives, leaf for leaf and bit for
+    bit, `(trunc_normal * std).to(dtype)` drawn in the spec's leaf order,
+    and bf16 parameters are the fp32 ones rounded."""
+    import math
+    from repro_torch.models import param as P
+    tm = build_model(dataclasses.replace(smoke_config(arch),
+                                         vocab_size=VOCAB))
+    got = tree_leaves(tm.init(seed=3, device="cpu"))
+    half = tree_leaves(tm.init(seed=3, dtype=torch.bfloat16, device="cpu"))
+    gen = torch.Generator().manual_seed(3)
+    for s, g, h in zip(tree_leaves(tm.spec), got, half, strict=True):
+        if s.init in ("normal", "embed"):
+            fan_in = (s.shape[0] if len(s.shape) == 1
+                      else math.prod(s.shape[:-1]))
+            std = (s.scale / max(1.0, math.sqrt(fan_in))
+                   if s.init == "normal" else s.scale * 0.02)
+            want = P._trunc_normal(s.shape, gen) * std
+        else:
+            want = P._init_leaf(s, gen, torch.float32)
+        assert torch.equal(g, want), s
+        assert torch.equal(h, want.to(torch.bfloat16)), s

@@ -470,19 +470,61 @@ def test_pool_keeps_m_in_fp32_and_refuses_oversized(models):
     dict(causal=False), dict(norm="qnorm")],
     ids=["moe", "qk_norm", "embedding_frontend", "non_causal", "norm"])
 def test_check_ported_still_refuses(change):
-    """The xLSTM family is ported, but a config with anything the port
-    does not have is still refused with a pointer to the ROADMAP."""
+    """The xLSTM family with a field that only the attention families
+    read (a MoE config, qk-norm, non-causal attention) or an embedding
+    frontend: the port accepts it as the reference does, with the same
+    spec tree and the same fp32 forward logits on bridged weights (frame
+    embeddings in for the frontend). A norm that neither package knows
+    is still refused by both, with the reference's ValueError."""
+    from repro.configs.base import MoEConfig as JMoEConfig
     from repro_torch.configs.base import MoEConfig
+    jchange = dict(change)
     if change.get("moe"):
-        change = dict(moe=MoEConfig(num_experts=4, top_k=2,
-                                    d_ff_expert=32))
-    cfg = dataclasses.replace(smoke_config(ARCH), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
+        change = dict(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=32))
+        jchange = dict(moe=JMoEConfig(num_experts=4, top_k=2,
+                                      d_ff_expert=32))
+    jcfg = dataclasses.replace(jax_smoke_config(ARCH), vocab_size=VOCAB,
+                               **jchange)
+    cfg = dataclasses.replace(smoke_config(ARCH), vocab_size=VOCAB, **change)
+    if cfg.norm == "qnorm":
+        with pytest.raises(ValueError, match="qnorm"):
+            jax_build_model(jcfg)
+        with pytest.raises(ValueError, match="qnorm"):
+            build_model(cfg)
+        return
+    jm, tm = jax_build_model(jcfg), build_model(cfg)
+    jspec, tspec = _paths(jm.spec), _paths(tm.spec)
+    assert {k: s.shape for k, s in tspec.items()} == \
+        {k: s.shape for k, s in jspec.items()}
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32)
+         if cfg.embedding_frontend else _tokens((2, 16), seed=7))
+    want, _ = jax.jit(lambda p, t: jm.apply(p, t, compute_dtype=F32))(
+        jp, jnp.asarray(x))
+    got, _ = tm.apply(tp, torch.from_numpy(x), compute_dtype=torch.float32)
+    np.testing.assert_allclose(_np(got)[..., :VOCAB], _np(want)[..., :VOCAB],
+                               atol=FP32_TOL, rtol=0)
 
 
 def test_gelu_is_accepted_only_for_the_ssm_family():
+    """GELU was once accepted only where the xLSTM blocks ignore it; the
+    dense family now runs the reference's GELU MLP (w_in, w_down; the
+    tanh approximation of jax.nn.gelu): the same fp32 logits on bridged
+    weights."""
     build_model(smoke_config(ARCH))                      # act="gelu"
-    dense = dataclasses.replace(smoke_config("olmo-1b"), act="gelu")
-    with pytest.raises(NotImplementedError, match="activation 'gelu'"):
-        build_model(dense)
+    jcfg = dataclasses.replace(jax_smoke_config("olmo-1b"), act="gelu",
+                               vocab_size=VOCAB)
+    dense = dataclasses.replace(smoke_config("olmo-1b"), act="gelu",
+                                vocab_size=VOCAB)
+    jm, tm = jax_build_model(jcfg), build_model(dense)
+    assert sorted(tm.spec["segments"][0]["mlp"]) == ["w_down", "w_in"]
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    x = _tokens((2, 16), seed=8)
+    want, _ = jax.jit(lambda p, t: jm.apply(p, t, compute_dtype=F32))(
+        jp, jnp.asarray(x))
+    got, _ = tm.apply(tp, torch.from_numpy(x), compute_dtype=torch.float32)
+    np.testing.assert_allclose(_np(got)[..., :VOCAB], _np(want)[..., :VOCAB],
+                               atol=FP32_TOL, rtol=0)
