@@ -41,16 +41,18 @@ Phases, in order; the script exits non-zero at the first failure:
    64 and 48 buckets, and on the drift plane's bigram tokens). Tolerance
    fp32 2e-4, bf16 2e-2 (drift and JS 1e-5 / 1e-6 absolute).
 4. Serve olmo-1b, hymba-1.5b and xlstm-350m at full width through
-   `repro_torch.launch.serve.main` (8 requests, 4 slots, 32 new tokens,
-   random weights from seed 0; olmo 512-token prompts, hymba and xlstm
+   `repro_torch.launch.serve.main` (8 requests, xlstm 4, in 4 slots, 32
+   new tokens, random weights from seed 0; olmo 512-token prompts, hymba and xlstm
    1024-token prompts, so with its 128 meta tokens hymba's windowed
    layers' ring has wrapped at prefill). Launch counters are set to 0 just
    before each run and read just after: every global-attention layer must
    have gone through flash_attention once per prefill and once per decode
    call, every hymba layer's Mamba heads through ssd_scan once per
    prefill, and every xlstm mLSTM block through mlstm_scan once per
-   prefill (12 x 8 = 96). Then for each a short torch.profiler window over
-   one prefill and a few decode ticks: device busy share and the kernels
+   prefill (12 x 4 = 48). Then for each a short torch.profiler window over
+   one prefill and a few decode ticks (xlstm's slots filled from 64-token
+   prompts: its recurrent tick costs the same at any position): device
+   busy share and the kernels
    that take most device time; for hymba also the device time of the
    plain windowed attention, for xlstm that of the plain sLSTM scan.
 5. Full-width prefill last-token logits, kernel path vs plain path, same
@@ -160,6 +162,24 @@ Phases, in order; the script exits non-zero at the first failure:
    unmetered fp32 windows; each tier's eval forwards held to the plain
    route once, in the first window it has live jobs. (c) `repro_torch.launch.train.main` on the
    card at smoke scale for 2 windows.
+6g. The fleet planes under a device mesh (`[mesh]`, after 6f;
+   `repro_torch.launch.mesh`, `distributed/`). (a) On a 4-entry fleet mesh
+   whose entries are all this card: fleet_drift at 99,999 streams x 256
+   tokens (64 buckets, vocab 64) and pairwise_js (32, 16,383) with the
+   requests' rows and with the fleet's rows sharded; each call launches
+   its kernel once per block (4), is bit-identical to the unsharded call
+   and within the checks' tolerances of the plain version; ms per call
+   beside the unsharded call's. (b) olmo-1b at full width (vocabulary 64),
+   fp32, two windows of ecco with the kernel routes unsharded and on a
+   2-entry mesh (the 4-row bank in 2 blocks): decisions and floats equal,
+   fleet_drift and pairwise_js launched once per block where the
+   unsharded run launches once, flash_attention as often. (c) The elastic
+   recovery at smoke width: ecco on 4 entries loses 2 in its second
+   window and re-runs it on 2; the history equals the card's unsharded
+   run that never failed exactly and the CPU's in decisions (accuracies
+   and shares within WINDOW_ACC_GAP). (d) One full-width olmo-1b job
+   state (14.12 GB) saved from its bank row, the row zeroed, restored
+   through the bank: bit for bit; GB, save and restore seconds.
 7. Time each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls) at the
    serving shapes, with CUDA events after warm-up, rotating input buffers
@@ -177,7 +197,10 @@ Phases, in order; the script exits non-zero at the first failure:
    window loop's as `window_launches`, and with mlstm_scan's the
    full-width metered windows' as `meter_launches`; flash_attention's
    also `[families]`' as `families_launches` and
-   `families_combine_launches`, and its qwen2-moe and hubert time rows),
+   `families_combine_launches`, and its qwen2-moe and hubert time rows;
+   flash_attention's, fleet_drift's and pairwise_js's `[mesh]` (b) and
+   (c) launches as `mesh_launches`, and fleet_drift's and pairwise_js's
+   (a) calls as `mesh_call` / `mesh_call_rows` / `mesh_call_cols`),
    the nvidia-smi line
    again,
    and as the last line `{"ok": true, "device": {...}}`.
@@ -221,6 +244,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.core import trainer as _trainer  # noqa: E402
 from repro_torch.core.baselines import FRAMEWORKS  # noqa: E402
 from repro_torch.core.controller import ControllerConfig  # noqa: E402
 from repro_torch.core.drift import (FleetDriftDetector,  # noqa: E402
@@ -231,7 +255,8 @@ from repro_torch.core.signature_index import SignatureIndex  # noqa: E402
 from repro_torch.core.trainer import (JobBank, RetrainJob,  # noqa: E402
                                       SharedEngine, _hit_mean)
 from repro_torch.data.scenarios import build_scenario  # noqa: E402
-from repro_torch.data.streams import DomainBank, Region  # noqa: E402
+from repro_torch.data.streams import (DomainBank, Region,  # noqa: E402
+                                      make_fleet)
 from repro_torch.examples import serve_continuous  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import SOURCE as FA_SOURCE  # noqa: E402
@@ -256,6 +281,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     CUDA_CORE as SSD_CUDA_CORE, TENSOR_CORE as SSD_TENSOR_CORE, ssd_scan,
     plan as ssd_plan)
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import make_fleet_mesh  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.convert import load_params_npz  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -282,6 +308,10 @@ LOGIT_TOL = 0.1
 # tokens, window 1024): 8 requests, 4 slots, 32 new tokens each
 ARCH, HYMBA, XLSTM = "olmo-1b", "hymba-1.5b", "xlstm-350m"
 REQUESTS, SLOTS, MAX_NEW = 8, 4, 32
+# xlstm-350m serves one wave (its plain sLSTM prefill takes about 3.7 s a
+# request on the card), and its profiled ticks decode slots filled from
+# short prompts: a recurrent decode tick costs the same at any position
+XL_REQUESTS, XL_WARM_PROMPT = SLOTS, 64
 SERVING = {ARCH: dict(prompt=512, capacity=1024),
            HYMBA: dict(prompt=1024, capacity=1056),
            XLSTM: dict(prompt=1024, capacity=1056)}
@@ -727,14 +757,16 @@ def _sass_counts(source):
         sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                               text=True, check=True, timeout=120).stdout
         name = None
+        ops = {op: re.compile(rf"\b{op}\b") for op in ("HMMA", "FFMA")}
         for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                name = m.group(1)
+            if "Function : " in line:
+                name = re.search(r"Function : (\S+)", line).group(1)
                 counts[name] = {"HMMA": 0, "FFMA": 0}
             elif name:
-                for op in ("HMMA", "FFMA"):
-                    if re.search(rf"\b{op}\b", line):
+                for op, pat in ops.items():
+                    # the substring test first: a regex per line and op
+                    # took seconds over the libraries' SASS
+                    if op in line and pat.search(line):
                         counts[name][op] += 1
         return counts, "cuobjdump -sass"
     ptx = lib.with_suffix(".ptx")
@@ -1186,8 +1218,9 @@ def profile_serving(arch):
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, size=prompt)
                for _ in range(SLOTS + 1)]
+    warm = XL_WARM_PROMPT if cfg.family == "ssm" else prompt
     for i in range(SLOTS - 1):
-        loop.submit(f"p{i}", prompts[i])
+        loop.submit(f"p{i}", prompts[i][:warm])
     for _ in range(2):                                  # warm
         loop.tick()
     runs = {}
@@ -1214,14 +1247,16 @@ def profile_serving(arch):
         print(f"[profile] {arch} {name}: wall {wall_ms:.3f} ms, device busy "
               f"{busy / n:.3f} ms, idle share {1 - busy / n / wall_ms:.3f} "
               f"({kernels // n} kernels per call)")
-        top = sorted(pr.key_averages(), key=lambda e: -e.device_time_total)
+        # averaged once: over an xlstm prefill's 210,000 kernel records
+        # each key_averages() pass takes seconds
+        avgs = pr.key_averages()
+        top = sorted(avgs, key=lambda e: -e.device_time_total)
         for e in top[:6]:
             print(f"[profile]   {e.device_time_total / 1e3 / n:8.3f} ms "
                   f"x{e.count // n:<4} {e.key[:90]}")
         for kname, parts in (("ssd_scan", SSD_TC_KERNELS + SSD_CC_KERNELS),
                              ("mlstm_scan", ML_TC_KERNELS + ML_CC_KERNELS)):
-            ev = [e for e in pr.key_averages()
-                  if any(k in e.key for k in parts)]
+            ev = [e for e in avgs if any(k in e.key for k in parts)]
             if ev:
                 print(f"[profile]   {kname} kernels: "
                       f"{sum(e.device_time_total for e in ev) / 1e3 / n:.3f}"
@@ -3179,6 +3214,277 @@ def families():
 
 
 # ---------------------------------------------------------------------------
+# phase 6g: the fleet planes under a device mesh
+# ---------------------------------------------------------------------------
+MESH_N = 4                  # (a), (c): entries of the one-card fleet mesh
+MESH_FD_N = 99_999          # (a): fleet_drift streams, not a multiple of 4
+MESH_PJS = (32, 16_383)     # (a): pairwise_js requests x fleet rows
+MESH_FULL = 2               # (b): entries of the full-width mesh
+MESH_WINDOWS = 2            # (b): windows a run
+MESH_FAIL = (2, 4)          # (c): devices lost, at the window's 4th barrier
+MESH_CC = dict(window_micro=6, micro_steps=4, train_batch=16,
+               drift_threshold=0.25, p_drop=0.5, shared_bandwidth=1e9)
+MESH_FLEET = dict(vocab=64, regions=2, streams_per_region=2, dim=4,
+                  switch_times=(5.0,), seed=1)
+MESH_DIR = os.path.join(HERE, "build", "mesh_ckpt")
+
+
+def card_mesh(n):
+    """A fleet mesh of `n` entries, every one this card."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return make_fleet_mesh(n, devices=[dev] * n)
+
+
+def _mesh_call(name, kernel, fn, one, sharded, plain, tols):
+    """One sharded call: the kernel's launches counted around it (one per
+    block), its outputs bit for bit against the unsharded call's and within
+    `tols` of the plain version's; then the ms per call of both, CUDA
+    events over 20 calls. Returns the (a) record."""
+    want = fn(one)
+    kernel.launches = 0
+    got = fn(sharded)
+    launches = kernel.launches
+    assert launches == MESH_N, (name, launches)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), f"{name}: sharded != one call"
+    err = max(_check(f"mesh {name} {i}", g, p, tol, 0.0)
+              for i, (g, p, tol) in enumerate(zip(got, plain, tols)))
+    ms_one = _time_ms(lambda: fn(one), [()], iters=20)
+    ms_mesh = _time_ms(lambda: fn(sharded), [()], iters=20)
+    print(f"[mesh] (a) {name} on {MESH_N} entries of one card: bit-identical"
+          f" to one call, {launches} launches a call, max_abs_err vs plain "
+          f"{err:.3e}; {ms_mesh:.4f} ms per call sharded, {ms_one:.4f} "
+          f"unsharded ({ms_mesh / ms_one:.2f}x)")
+    return {"ms": ms_mesh, "unsharded_ms": ms_one,
+            "launches_per_call": launches, "max_abs_err": err}
+
+
+def mesh_kernels():
+    """(a) fleet_drift at 99,999 streams x 256 tokens (64 buckets, vocab
+    64: 102 MB of tokens, 26 MB of references) and pairwise_js (32,
+    16,383) with p's rows and q's rows sharded, each over a 4-entry mesh
+    of this card: one launch per block, bit-identical to one call, within
+    the checks' tolerances of the plain version."""
+    mesh = card_mesh(MESH_N)
+    rng = np.random.default_rng(23)
+    toks = torch.as_tensor(rng.integers(0, DRIFT_VOCAB + 1, size=(
+        MESH_FD_N, DRIFT_T)).astype(np.int32), device=DEV)
+    ref = torch.as_tensor(rng.random((MESH_FD_N, BUCKETS), np.float32),
+                          device=DEV)
+    kw = dict(buckets=BUCKETS, vocab=DRIFT_VOCAB)
+    out = {"fleet_drift": _mesh_call(
+        f"fleet_drift ({MESH_FD_N}, {DRIFT_T})", fleet_drift,
+        lambda m: ops.fleet_drift(toks, ref, mesh=m, **kw), None, mesh,
+        fleet_drift_ref(toks, ref, **kw), (DRIFT_SCORE_TOL, DRIFT_HIST_TOL))}
+    n, m = MESH_PJS
+    p = torch.as_tensor(rng.random((n, BUCKETS), np.float32), device=DEV)
+    q = rng.random((m, BUCKETS), np.float32)
+    q[rng.random(m) < 0.4] = 0.0
+    q = torch.as_tensor(q, device=DEV)
+    plain = (pairwise_js_ref(p, q),)
+    out["pairwise_js"] = {shard: _mesh_call(
+        f"pairwise_js ({n}, {m}) shard={shard}", pairwise_js,
+        lambda mm, s=shard: (ops.pairwise_js(p, q, mesh=mm, shard=s),),
+        None, mesh, plain, (PJS_TOL,)) for shard in ("rows", "cols")}
+    return out
+
+
+def _mesh_history_equal(a, b, tag):
+    """Two controllers' histories, decisions and floats, exactly."""
+    assert len(a) == len(b), tag
+    for w, (wa, wb) in enumerate(zip(a, b)):
+        at = f"{tag} window {w}"
+        assert wa.t == wb.t, at
+        assert wa.groups == wb.groups, (at, wa.groups, wb.groups)
+        assert list(wa.per_stream_acc) == list(wb.per_stream_acc), at
+        for k, v in wa.per_stream_acc.items():
+            u = wb.per_stream_acc[k]
+            assert v == u or (math.isnan(v) and math.isnan(u)), (at, k, v, u)
+        assert wa.shares == wb.shares, at
+        assert wa.bandwidth == wb.bandwidth, at
+        assert wa.delivered == wb.delivered, at
+
+
+def mesh_full_width():
+    """(b) olmo-1b at full width (vocabulary 64), random weights from seed
+    0, fp32 compute, ecco with drift_impl="auto" and a top-2 shortlist on
+    the golden scenario, two windows unsharded and two on a 2-entry mesh
+    of this card (the bank's 4 rows in 2 blocks): decisions and floats
+    equal, fleet_drift and pairwise_js launched once per block where the
+    unsharded run launches once, flash_attention as often. Returns the
+    mesh run's launches."""
+    cfg = dataclasses.replace(get_config(ARCH), vocab_size=64)
+    runs = {}
+    for name, mesh in (("unsharded", None), ("mesh", card_mesh(MESH_FULL))):
+        _free_device()
+        sc = wtrace.golden_scenario()
+        _trainer._job_counter.n = 0
+        engine = SharedEngine(cfg, TrainConfig(**WINDOW_FP32), device=DEV)
+        engine.bank = JobBank(engine, capacity=WINDOW_BANK)
+        kw = dict(window_seconds=sc.window_seconds,
+                  shared_bandwidth=sc.shared_bandwidth,
+                  local_caps=sc.local_caps)
+        kw.update(wtrace.GOLDEN_CONTROLLER, drift_impl="auto", shortlist_k=2)
+        ctl = FRAMEWORKS["ecco"](engine, list(sc.streams),
+                                 ControllerConfig(**kw), mesh=mesh)
+        assert engine.bank.capacity == WINDOW_BANK
+        ctl.warmup()
+        _reset_window_launches()
+        ms = []
+        for _ in range(MESH_WINDOWS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctl.run_window()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        got = _window_launches()
+        runs[name] = (list(ctl.history), got)
+        print(f"[mesh] (b) {ARCH} full width fp32, {name}"
+              f"{'' if mesh is None else f' ({mesh.size} entries)'}: "
+              f"windows {[round(x, 1) for x in ms]} ms; launches {got}; "
+              f"groups {ctl.history[-1].groups}; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del ctl, engine
+    (one, l1), (sharded, lm) = runs["unsharded"], runs["mesh"]
+    _mesh_history_equal(one, sharded, "[mesh] (b)")
+    assert lm["flash_attention"] == l1["flash_attention"] > 0, (l1, lm)
+    assert lm["fleet_drift"] == MESH_FULL * l1["fleet_drift"] > 0, (l1, lm)
+    assert lm["pairwise_js"] == MESH_FULL * l1["pairwise_js"], (l1, lm)
+    print(f"[mesh] (b) decisions and floats equal over {MESH_WINDOWS} "
+          f"windows")
+    return lm
+
+
+def _mesh_controller(framework, engine, **kw):
+    """tests/test_torch_elastic.py's fleet and controller, with the kernel
+    routes on (drift_impl="auto", a top-2 shortlist)."""
+    _trainer._job_counter.n = 0
+    _, streams = make_fleet(**MESH_FLEET)
+    cc = ControllerConfig(**MESH_CC, drift_impl="auto", shortlist_k=2)
+    return FRAMEWORKS[framework](engine, streams, cc, seed=0, **kw)
+
+
+def mesh_elastic():
+    """(c) The elastic recovery of tests/test_torch_elastic.py at smoke
+    width on the card with the kernel routes on, fp32 from the
+    reference's initial weights: ecco on
+    a 4-entry mesh of this card loses 2 entries at window 2's 4th barrier
+    and re-runs on 2. Its history equals the card's unsharded run that
+    never failed, exactly, and the CPU's in decisions, with accuracies
+    and shares within WINDOW_ACC_GAP. Returns the elastic run's
+    launches."""
+    from repro_torch.distributed.elastic import FleetElastic
+    init = {0: load_params_npz(WINDOW_INIT)}
+    cfg = dataclasses.replace(smoke_config(ARCH), vocab_size=64)
+
+    def engine(dev):
+        return SharedEngine(cfg, TrainConfig(**WINDOW_FP32), device=dev,
+                            init_params=init)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    cpu = _mesh_controller("ecco", engine(torch.device("cpu")))
+    cpu.run(3)
+    card = _mesh_controller("ecco", engine(DEV))
+    card.run(3)
+    el = FleetElastic(MESH_DIR, mesh=card_mesh(MESH_N))
+    ctl = _mesh_controller("ecco", engine(DEV), elastic=el)
+    _reset_window_launches()
+    ctl.warmup()
+    ctl.run_window()
+    el.schedule_failure(MESH_FAIL[0], after_barriers=MESH_FAIL[1])
+    ctl.run_window()
+    ctl.run_window()
+    got = _window_launches()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    assert len(el.recoveries) == 1, el.recoveries
+    plan = el.recoveries[0]
+    assert (plan.old_mesh_shape, plan.new_mesh_shape) == (
+        (MESH_N,), (MESH_N - MESH_FAIL[0],)), plan
+    assert ctl.mesh.size == ctl.engine.bank.mesh.size == MESH_N - MESH_FAIL[0]
+    _mesh_history_equal(card.history, ctl.history, "[mesh] (c)")
+    gap = 0.0
+    for wc, wp in zip(ctl.history, cpu.history):
+        assert wc.t == wp.t and wc.groups == wp.groups, (wc, wp)
+        assert wc.delivered == wp.delivered
+        gap = max([gap] + [abs(a - b) for a, b in zip(
+            list(wc.per_stream_acc.values()) + list(wc.shares.values()),
+            list(wp.per_stream_acc.values()) + list(wp.shares.values()))
+            if not (math.isnan(a) and math.isnan(b))])
+    assert gap <= WINDOW_ACC_GAP, gap
+    assert got["flash_attention"] > 0, got
+    print(f"[mesh] (c) ecco at smoke width fp32, {MESH_N} entries lose "
+          f"{MESH_FAIL[0]} in the second window, at its barrier "
+          f"{MESH_FAIL[1]}: "
+          f"{len(el.recoveries)} recovery {plan.old_mesh_shape} -> "
+          f"{plan.new_mesh_shape}; history equal to the card's run that "
+          f"never failed; card vs CPU decisions equal, largest accuracy / "
+          f"share gap {gap!r}; launches {got}; groups "
+          f"{ctl.history[-1].groups}")
+    return got
+
+
+def mesh_checkpoint():
+    """(d) One full-width olmo-1b job state (14.12 GB of fp32 params and
+    AdamW moments) saved from its bank row, the row zeroed
+    (`invalidate_device`), and restored through the bank on the card:
+    every leaf equal to a fresh draw of the same seed, bit for bit. Prints
+    the GB, the save and the restore seconds (the host's disk and
+    np.save, not the card)."""
+    from repro_torch.distributed import checkpoint as ckpt
+    _free_device()
+    cfg = get_config(ARCH)
+    engine = SharedEngine(cfg, device=DEV)
+    engine.bank = bank = JobBank(engine, capacity=1)
+    req = Request(stream_id="ckpt", t=0.0, loc=(0.0, 0.0),
+                  subsamples=np.zeros((1, 8), np.int64), acc=0.0)
+    job = RetrainJob(engine, req, seed=0)
+    gb = bank.state_row_nbytes / 1e9
+    free = shutil.disk_usage(os.path.dirname(MESH_DIR)
+                             if os.path.isdir(os.path.dirname(MESH_DIR))
+                             else HERE).free / 1e9
+    print(f"[mesh] (d) one {ARCH} job state of {gb:.2f} GB; {free:.1f} GB "
+          f"free on the checkout's disk")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(MESH_DIR, 0, bank.row_device(job._slot.idx))
+        save_s = time.perf_counter() - t0
+        bank.invalidate_device()
+        assert not any(bool(x.any()) for x in
+                       tree_leaves(bank.row_device(job._slot.idx)))
+        t0 = time.perf_counter()
+        ckpt.restore_job(MESH_DIR, 0, job, devices=DEV)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    assert bank._host is None           # written on the card, not the mirror
+    want = engine.fresh_state(0)
+    got = bank.row_device(job._slot.idx)
+    same = [torch.equal(a, b) for a, b in zip(
+        _trainer._flatten(got), _trainer._flatten(want))]
+    assert all(same), f"{same.count(False)} leaves differ"
+    print(f"[mesh] (d) {gb:.2f} GB saved in {save_s:.2f} s "
+          f"({gb / save_s:.2f} GB/s), restored through the bank in "
+          f"{restore_s:.2f} s ({gb / restore_s:.2f} GB/s); {len(same)} "
+          f"leaves equal bit for bit")
+    del job, engine, bank, want, got
+    return {"gb": gb, "save_s": save_s, "restore_s": restore_s}
+
+
+def mesh():
+    """[mesh]: (a)-(d); returns the kernels' records and launches."""
+    calls = mesh_kernels()
+    launches = dict(mesh_full_width())
+    for k, v in mesh_elastic().items():
+        launches[k] += v
+    _free_device()
+    ck = mesh_checkpoint()
+    _free_device()
+    return calls, launches, ck
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing
 # ---------------------------------------------------------------------------
 def _time_ms(fn, sets, iters=50, warmup=5):
@@ -3693,10 +3999,10 @@ def main():
     phase(f"logits {HYMBA}", compare_logits, HYMBA)
     # the same weights in fp32: how much of the bf16 difference is rounding
     phase(f"logits {HYMBA} fp32", compare_logits, HYMBA, torch.float32)
-    xl = phase(f"serve {XLSTM}", serve_full_width, XLSTM)
+    xl = phase(f"serve {XLSTM}", serve_full_width, XLSTM, XL_REQUESTS)
     # 12 mLSTM blocks, each through the kernel once per prefill
     assert xl == {"flash_attention": 0, "flash_attention_combine": 0,
-                  "ssd_scan": 0, "mlstm_scan": 12 * REQUESTS}, xl
+                  "ssd_scan": 0, "mlstm_scan": 12 * XL_REQUESTS}, xl
     launches["mlstm_scan"] = xl["mlstm_scan"]
     phase(f"logits {XLSTM}", compare_logits, XLSTM)
     phase(f"logits {XLSTM} fp32", compare_logits, XLSTM, torch.float32)
@@ -3726,6 +4032,8 @@ def main():
     phase("fleet smoke", fleet_smoke)
     torch.cuda.empty_cache()
     fam = phase("families", families)
+    _free_device()
+    mesh_calls, mesh_launches, mesh_ckpt = phase("mesh", mesh)
     torch.cuda.empty_cache()
     att = phase("time flash_attention", time_attention, pk)
     phase("sweep flash_attention plans", sweep_attention_plans)
@@ -3765,18 +4073,24 @@ def main():
              meter_launches=meter["flash_attention"],
              fleet_launches=fleet[0], fleet_combine_launches=fleet[1],
              families_launches=fam[0], families_combine_launches=fam[1],
+             mesh_launches=mesh_launches["flash_attention"],
              tensor_core_hmma=hmma),
         dict(_entry("fleet_drift", *src["fleet_drift"],
                     launches["fleet_drift"], err["fleet_drift"], fd),
              window_launches=window["fleet_drift"],
-             meter_launches=meter["fleet_drift"]),
+             meter_launches=meter["fleet_drift"],
+             mesh_launches=mesh_launches["fleet_drift"],
+             mesh_call=mesh_calls["fleet_drift"]),
         dict(_entry("pairwise_js", *src["pairwise_js"],
                     launches["pairwise_js"], err["pairwise_js"], pj[1],
                     requests_32=pj[32]),
              storm_full_uploads=storm["full_uploads"],
              storm_rows_uploaded=storm["rows_uploaded"],
              window_launches=window["pairwise_js"],
-             meter_launches=meter["pairwise_js"]),
+             meter_launches=meter["pairwise_js"],
+             mesh_launches=mesh_launches["pairwise_js"],
+             mesh_call_rows=mesh_calls["pairwise_js"]["rows"],
+             mesh_call_cols=mesh_calls["pairwise_js"]["cols"]),
         dict(_entry("ssd_scan", *src["ssd_scan"], launches["ssd_scan"],
                     err["ssd_scan"], ssd),
              bound_cuda_core_ms=ssd["bound_cuda_core"][0]),
@@ -3795,6 +4109,7 @@ def main():
             assert e["library_ms"] is None, e
         else:
             assert math.isfinite(e["library_ms"]), e
+    print(f"[mesh] checkpoint of one {ARCH} job: {mesh_ckpt}")
     print(f"[env] chip_smoke ran {time.perf_counter() - t_start:.1f}s after "
           f"start-up")
     print(json.dumps({"kernels": kernels}))

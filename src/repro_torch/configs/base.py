@@ -154,5 +154,5 @@ def check_train_config(tcfg: TrainConfig):
             f"10, launch/train.py); use remat='none'")
     if tcfg.compress_pod_grads:
         raise NotImplementedError(
-            "compress_pod_grads not ported yet (ROADMAP.md queue 1 item 9, "
+            "compress_pod_grads not ported yet (ROADMAP.md queue 1 item 9b, "
             "distribution)")

@@ -14,6 +14,8 @@ the coordination pieces swapped out, so comparisons isolate the paper's
 contributions. As in the reference, a roofline budget reaches them
 through `cc` (`ControllerConfig.roofline_budget` / `cost_table`), and
 they take no `zoo`: every job of theirs trains on the primary engine.
+Unlike the reference's, they take the controller's `mesh`, `elastic` and
+`stragglers`, so the four frameworks all run under a fleet mesh.
 The grouper's and the allocator's methods are patched on the instance
 each window (`InvariantChecker` recognises a patched framework by its
 instance attributes).
@@ -39,8 +41,13 @@ class IndependentController(ECCOController):
     # competition through the FleetTransmissionPlane's equal-share path
     bandwidth_mode = "equal"
 
-    def __init__(self, engine: SharedEngine, streams, cc=None, *, seed=0):
-        super().__init__(engine, streams, cc, seed=seed)
+    def __init__(self, engine: SharedEngine, streams, cc=None, *, seed=0,
+                 mesh=None, elastic=None, stragglers=None):
+        """`mesh`, `elastic` and `stragglers` as ECCOController's (the
+        reference's baselines take none of them); the elastic window
+        protocol wraps the patched window of each framework."""
+        super().__init__(engine, streams, cc, seed=seed, mesh=mesh,
+                         elastic=elastic, stragglers=stragglers)
         self.allocator = self.allocator_cls()
         self.zoo: Dict[str, dict] = {}
 

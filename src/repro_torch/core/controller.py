@@ -42,17 +42,29 @@ the remainder by gain per modeled second; `WindowMetrics.roofline` is
 the ledger. `zoo` engines are smaller model classes a metered controller
 may place NEW jobs on (`_pick_engine`).
 
-Not here yet, and refused loudly: `mesh`, `elastic` and `stragglers`
-(ROADMAP.md queue 1 item 9).
+Fleet distribution (docs/distributed_plane.md): with `mesh` (a
+`launch.mesh.FleetMesh`) every decision plane block-shards its row axis
+over the mesh's devices (JobBank slots, drift rows, signature columns,
+transmission flows), with decisions bit-identical to one device. With
+`elastic` (a `distributed.elastic.FleetElastic`) a window is
+transactional: job states are checkpointed and the host control plane
+snapshotted at its start, and a device loss raised at one of its
+barriers (after step 1, before each micro-window) shrinks the mesh to the
+survivors, rolls everything back and re-runs the window to the same
+decisions. `stragglers` (a `distributed.stragglers.StragglerPolicy`)
+shrinks a slow job's micro-window quota; `cc.window_deadline` drops the
+micro-windows left when a window runs out of time.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import trainer as _trainer
 from repro_torch.core.allocator import AllocationTrace, ECCOAllocator
 from repro_torch.core.batching import engine_groups
 from repro_torch.core.drift import FleetDriftDetector, batch_token_histogram
@@ -62,6 +74,7 @@ from repro_torch.core.trainer import RetrainJob, SharedEngine
 from repro_torch.core.transmission import (FleetTransmissionPlane,
                                            ProfileTable, SamplingConfig)
 from repro_torch.data.streams import Stream
+from repro_torch.distributed.elastic import DeviceFailure
 from repro_torch.serve.plane import FleetServePlane, ServeConfig
 
 
@@ -136,11 +149,6 @@ class WindowMetrics:
     roofline: Optional[Dict] = None
 
 
-def _refuse(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 {item})")
-
-
 class ECCOController:
     # GAIMD parameterization for step 2: "ecco" = alpha p_j/n_j
     # (GPU-share proportional); "equal" = plain AIMD equal competition
@@ -151,24 +159,33 @@ class ECCOController:
                  cc: Optional[ControllerConfig] = None, *, seed: int = 0,
                  mesh=None, elastic=None, stragglers=None, zoo=None):
         """`engine`'s device carries the fleet planes too: the drift
-        screen and the signature shortlist run where the jobs do. `zoo`:
+        screen and the signature shortlist run where the jobs do. `mesh`:
+        optional 1-D fleet mesh (launch.mesh.make_fleet_mesh): every
+        decision plane shards its row axis over it. `elastic`: optional
+        distributed.elastic.FleetElastic: run_window then checkpoints at
+        window start and survives a mid-window device loss by re-meshing
+        and re-running the window. `stragglers`: optional
+        distributed.stragglers.StragglerPolicy, wired into the
+        allocator's micro-window loop with cc.window_deadline. `zoo`:
         optional sequence of further SharedEngines (smaller model classes
         on the same device and vocabulary) a metered controller may place
         NEW jobs on: under budget pressure `_new_job` picks the largest
         tier whose micro-window cost fits the job's fair share of the
         window budget. Requires cc.roofline_budget; ignored otherwise."""
         self.cc = cc or ControllerConfig()
-        if mesh is not None or elastic is not None:
-            _refuse("the controller under a mesh or an elastic runtime",
-                    "item 9")
-        if stragglers is not None:
-            _refuse("straggler policies", "item 9")
         self.engine = engine
         self.streams = list(streams)
+        self.elastic = elastic
+        self.stragglers = stragglers
+        if mesh is None and elastic is not None:
+            mesh = elastic.mesh
+        self.mesh = mesh
+        if elastic is not None:
+            elastic.mesh = mesh
         self.allocator = ECCOAllocator()
         self.sig_index = SignatureIndex(buckets=self.cc.sig_buckets,
                                         capacity=max(64, 2 * len(streams)),
-                                        device=engine.device)
+                                        device=engine.device, mesh=mesh)
         self.grouper = Grouper(eps_t=self.cc.eps_t,
                                delta_loc=self.cc.delta_loc,
                                p_drop=self.cc.p_drop,
@@ -199,11 +216,14 @@ class ECCOController:
                     f"seq_len={self.cc.seq_len} (the token ring pool "
                     f"holds fixed-width rows); offending: {bad}")
         self.tx_plane = FleetTransmissionPlane(
-            table, bytes_per_token=self.cc.bytes_per_token)
+            table, bytes_per_token=self.cc.bytes_per_token, mesh=mesh)
         self.fleet = FleetDriftDetector(
             threshold=self.cc.drift_threshold, buckets=self.cc.sig_buckets,
             vocab=engine.cfg.vocab_size, impl=self.cc.drift_impl,
-            device=engine.device)
+            device=engine.device, mesh=mesh)
+        bank = getattr(engine, "bank", None)
+        if mesh is not None and hasattr(bank, "place_on"):
+            bank.place_on(mesh)   # job axis block-sharded over the mesh
         for s in self.streams:
             self.fleet.add_stream(s.stream_id)
         self.serve_plane = (FleetServePlane(engine, self.cc.serve)
@@ -355,9 +375,97 @@ class ECCOController:
         self.tx_plane.remove_flow(stream_id)
         self.request_time.pop(stream_id, None)
 
-    # ------------------------------------------------------------------
+    # -- elastic window protocol ---------------------------------------
+    def _barrier(self):
+        """Stage-boundary health check; DeviceFailure propagates to the
+        run_window retry loop. No-op without an elastic runtime."""
+        if self.elastic is not None:
+            self.elastic.barrier()
+
+    def _snapshot(self) -> dict:
+        """Host control-plane snapshot at a window boundary: everything a
+        window mutates outside the JobBank's device stack (which the
+        elastic runtime checkpoints to disk). Strong refs to the job
+        handles keep their bank slots alive through the rollback."""
+        return {
+            "t": self.t,
+            "stream_rng": {s.stream_id:
+                           copy.deepcopy(s.rng.bit_generator.state)
+                           for s in self.streams},
+            "jobs": list(self.jobs),
+            "job_host": {j.job_id: {
+                "members": [copy.copy(m) for m in j.members],
+                "pool": copy.deepcopy(j.pool),
+                "rng": copy.deepcopy(j.rng.bit_generator.state),
+                "gpu_time": j.gpu_time,
+            } for j in self.jobs},
+            "job_counter": _trainer._job_counter.n,
+            "history_len": len(self.history),
+            "request_time": dict(self.request_time),
+            "gains": dict(self.allocator.last_gains),
+            "grouper_events": len(self.grouper.events),
+            "fleet": self.fleet.state_dict(),
+            "sig": self.sig_index.state_dict(),
+            "tx": self.tx_plane.state_dict(),
+        }
+
+    def _restore(self, snap: dict, mesh):
+        """Roll the host control plane back to `snap` and re-attach every
+        plane to the (shrunken) `mesh`; job train-states come back from
+        the elastic runtime's window-start checkpoint. Jobs created by
+        the aborted attempt lose their last reference here: their bank
+        slots free through the deferred-free rule and compact away at the
+        next batched entry point."""
+        self.mesh = mesh
+        self.t = snap["t"]
+        for s in self.streams:
+            s.rng.bit_generator.state = \
+                copy.deepcopy(snap["stream_rng"][s.stream_id])
+        self.jobs[:] = snap["jobs"]
+        for j in self.jobs:
+            jh = snap["job_host"][j.job_id]
+            j.members = [copy.copy(m) for m in jh["members"]]
+            j.pool = copy.deepcopy(jh["pool"])
+            j.rng.bit_generator.state = copy.deepcopy(jh["rng"])
+            j.gpu_time = jh["gpu_time"]
+        _trainer._job_counter.n = snap["job_counter"]
+        del self.history[snap["history_len"]:]
+        self.request_time = dict(snap["request_time"])
+        self.allocator.last_gains = dict(snap["gains"])
+        del self.grouper.events[snap["grouper_events"]:]
+        self.fleet.set_mesh(mesh)
+        self.fleet.load_state_dict(snap["fleet"])
+        self.sig_index.set_mesh(mesh)
+        self.sig_index.load_state_dict(snap["sig"])
+        self.tx_plane.set_mesh(mesh)
+        self.tx_plane.load_state_dict(snap["tx"])
+        bank = getattr(self.engine, "bank", None)
+        if hasattr(bank, "invalidate_device"):
+            bank.invalidate_device()   # device memory is gone
+            bank.place_on(mesh)
+        if self.elastic is not None:
+            self.elastic.restore_jobs(self.jobs)
+
     def run_window(self) -> WindowMetrics:
-        """One retraining window (steps 1-6 of the module docstring)."""
+        """One retraining window (steps 1-6 of the module docstring). With
+        an elastic runtime the window is transactional: job states are
+        checkpointed and the host control plane snapshotted at its start,
+        and a DeviceFailure raised at a barrier shrinks the mesh to the
+        survivors, rolls everything back and re-runs the window, which
+        decides as a run that never failed (every plane's math is
+        row-local under block sharding)."""
+        if self.elastic is None:
+            return self._run_window_inner()
+        self.elastic.on_window_start(self.jobs)
+        snap = self._snapshot()
+        while True:
+            try:
+                return self._run_window_inner()
+            except DeviceFailure as e:
+                mesh = self.elastic.recover(e.lost)
+                self._restore(snap, mesh)
+
+    def _run_window_inner(self) -> WindowMetrics:
         cc = self.cc
         t = self.t
         meter = self._window_meter()   # None = the unmetered path
@@ -386,6 +494,7 @@ class ECCOController:
                               sig=self.fleet.hist(s.stream_id))
                 self.request_time.setdefault(s.stream_id, t)
                 self.grouper.group_request(self.jobs, req)
+        self._barrier()
 
         # 2. GPU shares estimate -> transmission control (GAIMD). The
         # plane warm-starts every flow's GAIMD rate from the state it
@@ -437,14 +546,19 @@ class ECCOController:
                     continue
                 j.ingest(sl, m.stream_id)
 
-            # 4. the allocator runs the retraining window (Alg. 1). With
-            # a roofline budget the window's eval / serve co-tenants are
-            # charged FIRST and the allocator maximizes gain per metered
-            # cost over the remainder
+            # 4. the allocator runs the retraining window (Alg. 1), under
+            # the elastic barrier (one health check per micro-window), the
+            # straggler quota policy and the window deadline, all no-ops
+            # when unset. With a roofline budget the window's eval / serve
+            # co-tenants are charged FIRST and the allocator maximizes
+            # gain per metered cost over the remainder
             if meter is not None:
                 self._reserve_overheads(meter)
             alloc_trace = self.allocator.run_window(
-                self.jobs, cc.window_micro, deadline=cc.window_deadline,
+                self.jobs, cc.window_micro, stragglers=self.stragglers,
+                deadline=cc.window_deadline,
+                barrier=(self.elastic.barrier if self.elastic is not None
+                         else None),
                 meter=meter)
 
             # 5. periodic regrouping (Alg. 2 UpdateGrouping), evaluated

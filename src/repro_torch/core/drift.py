@@ -190,11 +190,16 @@ class FleetDriftDetector:
     The reference and live histograms stay on the host; a kernel mode
     copies each window's tokens (as int32) and references (as fp32) to
     the device and the fp32 scores back.
+
+    `mesh` (a `launch.mesh.FleetMesh`): the screen's rows are
+    block-sharded over its devices (one `fleet_drift` launch per block),
+    and the row registry's capacity is aligned to the mesh size. Scores
+    and triggers do not depend on it.
     """
 
     def __init__(self, threshold: float = 0.25, buckets: int = 64,
                  vocab: Optional[int] = None, *, impl: str = "exact",
-                 band: float = 1e-4, device="cuda"):
+                 band: float = 1e-4, device="cuda", mesh=None):
         if impl != "exact" and impl not in ops.IMPLS:
             raise ValueError(f"unknown drift impl {impl!r}; use 'exact' "
                              f"or one of {ops.IMPLS}")
@@ -207,12 +212,22 @@ class FleetDriftDetector:
         # `device`, which must exist
         self.device = (torch.device(device) if impl == "exact"
                        else resolve_device(device))
-        self._rows = RowRegistry()           # id -> row churn discipline
+        self.mesh = mesh                     # row-axis device mesh (or None)
+        align = mesh.size if mesh is not None else 1
+        self._rows = RowRegistry(align=align)  # id -> row churn discipline
         cap = self._rows.capacity
         self._ref = np.zeros((cap, self.buckets), np.float64)
         self._has_ref = np.zeros(cap, bool)
         self._live = np.zeros((cap, self.buckets), np.float64)
         self._scores = np.zeros(cap, np.float64)
+
+    def set_mesh(self, mesh):
+        """(Re)attach a device mesh (the elastic re-mesh). Only the
+        kernel dispatch and the capacity alignment change; scores and
+        trigger decisions are mesh-independent."""
+        self.mesh = mesh
+        self._rows.set_align(mesh.size if mesh is not None else 1)
+        self._sync_capacity()
 
     # -- membership (camera churn) ---------------------------------------
     def __len__(self) -> int:
@@ -375,9 +390,11 @@ class FleetDriftDetector:
         fancy-indexed row subset)."""
         t = torch.from_numpy(np.ascontiguousarray(toks, np.int32))
         r = torch.from_numpy(np.ascontiguousarray(refs, np.float32))
-        fs, _ = ops.fleet_drift(t.to(self.device), r.to(self.device),
-                                buckets=self.buckets,
-                                vocab=int(self.vocab or 0), impl=self.impl)
+        if self.mesh is None:       # a mesh places each block itself
+            t, r = t.to(self.device), r.to(self.device)
+        fs, _ = ops.fleet_drift(t, r, buckets=self.buckets,
+                                vocab=int(self.vocab or 0), impl=self.impl,
+                                mesh=self.mesh)
         return fs.cpu().numpy().astype(np.float64)
 
     # -- snapshot / restore (elastic window rollback) ----------------------

@@ -18,10 +18,9 @@ count, so the row axis always splits into equal contiguous per-device
 blocks; `shard_spans` reports those blocks. Churn then never reshards
 the world: adds land in the dense prefix, swap-with-last moves copy one
 row between (possibly different) device blocks, and capacity growth
-keeps the same block structure. In this port no plane is sharded yet
-(the distribution module is queued in ROADMAP.md), so owners keep
-align = 1; the registry is copied whole so that a reference plane's
-state and this one's stay row-for-row the same.
+keeps the same block structure. The registry is the reference's, copied
+whole, so that a reference plane's state and this one's stay row-for-row
+the same.
 """
 from __future__ import annotations
 

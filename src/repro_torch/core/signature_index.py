@@ -30,6 +30,14 @@ recomputed, so the kernel sees the host's values bit for bit.
 (R, capacity) matrix comes back to the host, which gathers, masks and
 ranks it exactly as the reference does.
 
+Under a fleet mesh (`mesh=`, `set_mesh`) the signature block is the
+fleet side of the shortlist and is column-sharded: the mirror is one
+block of rows per shard, each on its shard's device (the capacity padded
+with zero rows to a multiple of the shard count), and the shortlist is
+one `pairwise_js` launch per block (`shard="cols"`). A dirty row goes to
+its own block; `block_full_uploads` and `block_rows_uploaded` count the
+uploads per block beside the totals. Scores do not depend on the mesh.
+
 Exactness: the prefilter reproduces the Python scan bit-for-bit (same
 float64 ops in the same order), so for k >= #passing jobs the grouping
 decisions are identical to the seed's Alg. 2 loop. The index must see
@@ -45,12 +53,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import block_devices, block_rows
 from repro_torch.kernels import ops
 
 
 class SignatureIndex:
     def __init__(self, buckets: int = 64, capacity: int = 64,
-                 *, impl: str = "auto", device="cuda"):
+                 *, impl: str = "auto", device="cuda", mesh=None):
         if impl not in ops.IMPLS:
             raise ValueError(f"unknown pairwise_js impl {impl!r}; use one "
                              f"of {ops.IMPLS}")
@@ -74,6 +83,7 @@ class SignatureIndex:
         self._dirty = set()        # rows of _sig the mirror has not seen
         self.full_uploads = 0      # uploads of the whole block
         self.rows_uploaded = 0     # dirty rows uploaded one by one
+        self.set_mesh(mesh)
 
     # -- bookkeeping --------------------------------------------------------
     def __len__(self) -> int:
@@ -174,6 +184,15 @@ class SignatureIndex:
             self._free.append(row)
             self._dirty.add(row)
 
+    def set_mesh(self, mesh):
+        """(Re)attach the fleet mesh (the elastic re-mesh): the mirror is
+        laid out anew at the next shortlist. Scores are mesh-independent."""
+        self.mesh = mesh           # fleet mesh: signatures column-sharded
+        n = len(block_devices(mesh)) if mesh is not None else 1
+        self.block_full_uploads = [0] * n
+        self.block_rows_uploaded = [0] * n
+        self._sig_dev = None
+
     # -- snapshot / restore (elastic window rollback) -----------------------
     def state_dict(self) -> dict:
         return {"sig": self._sig.copy(), "has_sig": self._has_sig.copy(),
@@ -212,15 +231,46 @@ class SignatureIndex:
     def device_signatures(self):
         """The (capacity, buckets) fp32 signature block on `device`, equal
         to the host's `_sig`: the whole block after a growth, a restore or
-        a rebuild, else the dirty rows in one indexed copy."""
+        a rebuild, else the dirty rows in one indexed copy. Under a mesh,
+        the list of its row blocks, each on its shard's device."""
+        if self.mesh is not None:
+            return self._device_blocks()
         if self._sig_dev is None:
             self._sig_dev = torch.from_numpy(self._sig).to(self.device,
                                                            copy=True)
             self.full_uploads += 1
+            self.block_full_uploads[0] += 1
         elif self._dirty:
             rows = np.fromiter(self._dirty, np.int64, len(self._dirty))
             self._sig_dev[torch.from_numpy(rows).to(self.device)] = \
                 torch.from_numpy(self._sig[rows]).to(self.device)
+            self.rows_uploaded += rows.size
+            self.block_rows_uploaded[0] += rows.size
+        self._dirty.clear()
+        return self._sig_dev
+
+    def _device_blocks(self):
+        devs = block_devices(self.mesh)
+        per = block_rows(self.capacity, len(devs))
+        if self._sig_dev is None:
+            host = np.zeros((per * len(devs), self.buckets), np.float32)
+            host[:self.capacity] = self._sig
+            self._sig_dev = [
+                torch.from_numpy(host[b * per:(b + 1) * per]).to(d, copy=True)
+                for b, d in enumerate(devs)]
+            self.full_uploads += 1
+            for b in range(len(devs)):
+                self.block_full_uploads[b] += 1
+        elif self._dirty:
+            rows = np.sort(np.fromiter(self._dirty, np.int64,
+                                       len(self._dirty)))
+            for b, d in enumerate(devs):
+                sel = rows[(rows >= b * per) & (rows < (b + 1) * per)]
+                if sel.size == 0:
+                    continue
+                self._sig_dev[b][torch.from_numpy(sel - b * per).to(d)] = \
+                    torch.from_numpy(self._sig[sel]).to(d)
+                self.block_rows_uploaded[b] += sel.size
             self.rows_uploaded += rows.size
         self._dirty.clear()
         return self._sig_dev
@@ -324,10 +374,13 @@ class SignatureIndex:
                           for s in sigs])
             # score against the full capacity block, as the reference
             # does (inactive rows are all-zero and stay finite), from the
-            # mirror on the device; the host ranks the copied-back matrix
-            d = ops.pairwise_js(torch.from_numpy(q).to(self.device),
-                                self.device_signatures(),
-                                impl=self.impl).cpu().numpy()
+            # mirror on the device(s); the host ranks the copied-back
+            # matrix (a mesh's padding columns lie past every row)
+            qt = torch.from_numpy(q)
+            if self.mesh is None:
+                qt = qt.to(self.device)
+            d = ops.pairwise_js(qt, self.device_signatures(), impl=self.impl,
+                                mesh=self.mesh, shard="cols").cpu().numpy()
             d = d[:, rows_sorted].astype(np.float64)
             d = np.where(mhas[None, :], d, np.inf)
             jobmin = np.minimum.reduceat(d, starts, axis=1)     # (R, jobs)

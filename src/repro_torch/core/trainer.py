@@ -33,10 +33,14 @@ Where the port differs from the reference, and why:
   * Eval forwards run under `torch.no_grad()` on the default kernel
     route (on the card, the `flash_attention` kernel); the train forward
     takes the autograd route (`train/train_step.py`).
-  * Not here yet: `mesh=` / `place_on` (ROADMAP.md queue 1 item 9) raise;
-    `invalidate_device` and the checkpoint templates `read_template` /
-    `state_template` arrive with elastic recovery and checkpoints (the
-    same item).
+  * Under a fleet mesh (`mesh=`, `place_on`) the resident stack is one
+    tensor per row block (`distributed.sharding.BlockRows`), block b on
+    the mesh's b-th device, capacity aligned to the mesh size. Each job
+    trains and evaluates on its own block's device; rows never change
+    value with the placement, so decisions stay bit-identical.
+  * `read_template` / `state_template` return `meta` tensors: a
+    checkpoint restore needs only the shapes, dtypes and structure, and
+    the port's mirror is not allocated until its first use.
 
 Residency: by default (`resident=True`) the stacked leaves live on the
 engine's device, with a per-slot host/device validity bitmap
@@ -59,6 +63,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.batching import job_precision
 from repro_torch.core.grouping import Request
+from repro_torch.distributed.sharding import BlockRows, block_devices
+from repro_torch.launch.mesh import on_device
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import build_model
 from repro_torch.models.param import tree_map
@@ -297,6 +303,11 @@ class JobBank:
     call and never cache them across a bank write/compaction, which may
     replace or move the rows. `gather` and `snapshot_params` return
     fresh tensors and are safe to hold.
+
+    Under a fleet mesh (`place_on`) each resident leaf is a `BlockRows`:
+    the slot axis in equal contiguous blocks, one per mesh device, with
+    capacity aligned to the mesh size so churn never re-pads the blocks.
+    Growth, compaction and re-meshing copy rows device to device.
     """
 
     def __init__(self, engine: "SharedEngine", capacity: int = 4,
@@ -323,15 +334,75 @@ class JobBank:
         self.stats = TransferStats()
         self.state_row_nbytes = 0    # one slot's full train-state
         self.params_row_nbytes = 0   # one slot's params subtree
+        self.mesh = None
         if mesh is not None:
             self.place_on(mesh)
 
     def place_on(self, mesh):
-        """Placement under a fleet mesh is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "JobBank under a mesh is not ported yet (ROADMAP.md queue "
-                "1 item 9, distribution)")
+        """(Re)place the resident stack under a fleet mesh: slots
+        block-sharded along the job axis, capacity aligned to the mesh
+        size so the blocks stay equal. Also the elastic re-mesh path: the
+        rows move device to device into the NEW mesh's blocks. mesh=None
+        detaches (one tensor per leaf on the engine's device). Values
+        never change, so decisions stay bit-identical."""
+        self.mesh = mesh
+        new_cap = self._align(self._cap)
+        if new_cap > self._cap:
+            self._pad_capacity(new_cap)     # lays the stack out anew
+        elif self._dev is not None:
+            self._dev = [self._restack(x, self._cap) for x in self._dev]
+            self._version += 1
+
+    def _layout(self) -> Optional[List[torch.device]]:
+        """The device of each slot block, or None for one tensor a leaf."""
+        if self.mesh is None or not self.resident:
+            return None
+        return block_devices(self.mesh)
+
+    def _align(self, n: int) -> int:
+        """Round capacity up to a multiple of the mesh's block count so the
+        slot axis splits into equal blocks (RowRegistry.align's rule)."""
+        if self.mesh is None:
+            return n
+        d = len(block_devices(self.mesh))
+        return -(-n // d) * d
+
+    def _restack(self, x, rows: int):
+        """Leaf `x` (a tensor or BlockRows) with `rows` slots in the current
+        layout, its first rows kept (device to device)."""
+        devs = self._layout()
+        if devs is None:
+            if isinstance(x, BlockRows):
+                x = x.flat(self.device)
+            pad = rows - x.shape[0]
+            if pad <= 0:
+                return x
+            return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        if not isinstance(x, BlockRows):
+            x = BlockRows([x])
+        if x.shape[0] == rows and x.devices == devs:
+            return x
+        return x.resized(rows, devs)
+
+    def slot_device(self, idx: int) -> torch.device:
+        """Where slot `idx`'s resident row lives (its block's device)."""
+        if self._dev is not None and isinstance(self._dev[0], BlockRows):
+            return self._dev[0].device_of(idx)
+        return self.device
+
+    def invalidate_device(self):
+        """Simulate accelerator-memory loss (the elastic failure model: the
+        device stack is gone, the host control plane survives). Every
+        device row is marked stale AND zeroed, so a recovery path that
+        forgets to restore a job reads zeros instead of silently reusing
+        lost values. Restore writes each job through `write`; the next
+        batched entry point flushes the fleet in one indexed copy."""
+        self._dev_ok[:] = False
+        self._version += 1
+        if self._dev is not None:
+            with torch.no_grad():
+                for x in self._dev:
+                    x.zero_()
 
     def __len__(self) -> int:
         """Live slots, including dead-but-not-yet-compacted ones."""
@@ -358,8 +429,10 @@ class JobBank:
             self._params_at = list(range(n_before, n_before + n))
             self.params_row_nbytes = sum(nbytes[i] for i in self._params_at)
         if self.resident:
+            devs = self._layout()
             self._dev = [torch.zeros((self._cap,) + s, dtype=d,
-                                     device=self.device)
+                                     device=self.device) if devs is None
+                         else BlockRows.zeros(self._cap, s, d, devs)
                          for s, d in self._shapes]
 
     def _host_stack(self) -> List[np.ndarray]:
@@ -371,10 +444,11 @@ class JobBank:
 
     def _grow_to(self, need: int):
         """Amortized doubling: allocating the Nth job is O(state), not
-        O(N * state)."""
+        O(N * state). Under a mesh, capacity rounds up to a multiple of
+        the block count."""
         if need <= self._cap:
             return
-        self._pad_capacity(max(need, 2 * self._cap))
+        self._pad_capacity(self._align(max(need, 2 * self._cap)))
 
     def _pad_capacity(self, new_cap: int):
         """Pad every stacked array (host mirror, resident stack,
@@ -387,8 +461,7 @@ class JobBank:
                 [x, np.zeros((pad,) + x.shape[1:], x.dtype)])
                 for x in self._host]
         if self._dev is not None:
-            self._dev = [torch.cat(
-                [x, x.new_zeros((pad,) + x.shape[1:])]) for x in self._dev]
+            self._dev = [self._restack(x, new_cap) for x in self._dev]
         # fleetlint: disable=rows-discipline -- JobBank IS the training
         # plane's row registry (amortized doubling + swap-compaction);
         # the validity bitmaps grow in lockstep with its stack
@@ -506,7 +579,10 @@ class JobBank:
             return
         sel = torch.from_numpy(dirty).to(self.device)
         for dst, src in zip(self._dev, self._host):
-            dst[sel] = torch.from_numpy(src[dirty]).to(self.device)
+            rows = torch.from_numpy(src[dirty])
+            # a block stack copies each row straight to its block's device
+            dst[sel] = rows if isinstance(dst, BlockRows) \
+                else rows.to(self.device)
         self._dev_ok[dirty] = True
         self.stats.h2d(int(dirty.size) * self.state_row_nbytes)
 
@@ -539,6 +615,15 @@ class JobBank:
         return _unflatten(self._skel["params"],
                           [np.array(self._host[i][idx])
                            for i in self._params_at])
+
+    def read_template(self, idx: int):
+        """Slot `idx`'s state as a shape / dtype / structure TEMPLATE of
+        `meta` tensors: no values, no sync, no host memory. For structure
+        consumers (a checkpoint restore's target) that would otherwise pay
+        a full-row copy to throw the numbers away."""
+        self._check_idx(idx)
+        return _unflatten(self._skel, [torch.empty(s, dtype=d, device="meta")
+                                       for s, d in self._shapes])
 
     def write(self, idx: int, state):
         """Write slot `idx`'s state. On a resident bank a state whose
@@ -636,7 +721,7 @@ class JobBank:
         if self.resident:
             self.sync_to_device()
             return _unflatten(self._skel["params"],
-                              [self._dev[i][idx].clone()
+                              [self._dev[i][idx].to(self.device, copy=True)
                                for i in self._params_at])
         self.stats.h2d(self.params_row_nbytes)
         return _unflatten(self._skel["params"],
@@ -765,8 +850,15 @@ class SharedEngine:
             mets.append(m)
         return state, mets
 
-    def _tokens(self, tokens) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(tokens), device=self.device)
+    def _tokens(self, tokens, device=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tokens),
+                               device=self.device if device is None
+                               else device)
+
+    def _params_device(self, params) -> torch.device:
+        """The device of a params tree (a mesh block's, for a bank row)."""
+        leaf = _flatten(params)[0]
+        return leaf.device if isinstance(leaf, torch.Tensor) else self.device
 
     @torch.no_grad()
     def _forward_hits(self, params, toks, precision: str):
@@ -784,7 +876,10 @@ class SharedEngine:
     def accuracy(self, params, tokens, *, precision: str = "fp32") -> float:
         """Top-1 next-token accuracy — the mAP analogue. `precision`
         picks the decision-plane eval dtype."""
-        hits = self._forward_hits(params, self._tokens(tokens), precision)
+        dev = self._params_device(params)
+        with on_device(dev):
+            hits = self._forward_hits(params, self._tokens(tokens, dev),
+                                      precision)
         # fleetlint: disable=host-sync -- the scalar decision API
         # returns a host float by contract; batched callers use
         # batched_accuracy, whose results cross once per chunk
@@ -828,14 +923,16 @@ class SharedEngine:
                 self.bank.stats.h2d(self.bank.params_row_nbytes)
             else:
                 params = tree_map(lambda x: x[jid], params_stack)
+            dev = self._params_device(params)   # the job's block's device
             for lo in range(0, len(members), m_chunk):
                 sel = members[lo:lo + m_chunk]
                 m = len(sel)
                 m_pad = min(m_chunk, -(-m // 8) * 8)
                 tk = np.zeros((m_pad * b,) + toks.shape[2:], toks.dtype)
                 tk[:m * b] = toks[sel].reshape(m * b, -1)
-                hits = self._forward_hits(params, self._tokens(tk),
-                                          precision)
+                with on_device(dev):
+                    hits = self._forward_hits(params, self._tokens(tk, dev),
+                                              precision)
                 count = hits.reshape(m_pad, b, -1).sum(dim=(1, 2))
                 # fleetlint: disable=host-sync -- one (m,) result crossing
                 # per (job, chunk), the batched API's host return
@@ -935,13 +1032,18 @@ class SharedEngine:
         the device (zero host round-trip); duck-typed foreign jobs and
         the host-resident bank go through `job.state`, whose whole state
         crosses the boundary twice per micro-window."""
-        t = self._tokens(toks)
-        batches = [{"inputs": x, "labels": x} for x in t]
         idx = self._bank_slot(job)
         if idx is not None and self.bank.resident:
-            _, mets = self.train_steps(self.bank.row_device(idx), batches)
+            dev = self.bank.slot_device(idx)    # the row's block's device
+            t = self._tokens(toks, dev)
+            batches = [{"inputs": x, "labels": x} for x in t]
+            with on_device(dev):
+                _, mets = self.train_steps(self.bank.row_device(idx),
+                                           batches)
             self.bank.written_on_device([idx])
             return _stack_steps(mets)
+        t = self._tokens(toks)
+        batches = [{"inputs": x, "labels": x} for x in t]
         if idx is not None:
             self.bank.stats.h2d(self.bank.state_row_nbytes)
             self.bank.stats.d2h(self.bank.state_row_nbytes)
@@ -1026,6 +1128,12 @@ class RetrainJob:
     @state.setter
     def state(self, tree):
         self.engine.bank.write(self._slot.idx, tree)
+
+    @property
+    def state_template(self):
+        """Shape / dtype / structure template of the train-state (`meta`
+        tensors, no sync): the target a checkpoint restore loads into."""
+        return self.engine.bank.read_template(self._slot.idx)
 
     def release(self):
         """Return the bank slot (idempotent). Runs automatically when

@@ -26,9 +26,10 @@ Two granularities, mirroring the drift plane:
     rate state persists across windows under camera churn
     (`FleetDriftDetector` row discipline).
 
-Not here yet: the plane under a fleet mesh (`mesh=`, `set_mesh`, and
-so `shard_spans`), which arrives with distribution (ROADMAP.md queue 1
-item 9); both raise.
+Under a fleet mesh (`mesh=`, `set_mesh`) the flow registry's capacity is
+aligned to the mesh size and `shard_spans` gives each device's block of
+flow rows; `decide_many` over those spans, concatenated, equals the
+global call row for row. Nothing of the plane runs on a device.
 """
 from __future__ import annotations
 
@@ -264,17 +265,32 @@ class FleetTransmissionPlane:
         self.max_steps = int(max_steps)
         self.chunk = int(chunk)
         self.tol = float(tol)
-        if mesh is not None:
-            self.set_mesh(mesh)
+        self.mesh = mesh
         self.last_steps = 0          # GAIMD steps burnt by last allocate
-        self._rows = RowRegistry()
+        self._rows = RowRegistry(align=mesh.size if mesh is not None else 1)
         self._r = np.zeros(self._rows.capacity, np.float32)  # GAIMD rates
 
     def set_mesh(self, mesh):
-        """The plane under a fleet mesh is not ported yet."""
-        raise NotImplementedError(
-            "FleetTransmissionPlane under a mesh is not ported yet "
-            "(ROADMAP.md queue 1 item 9, distribution)")
+        """(Re)attach the fleet mesh (the elastic re-mesh). Decisions are
+        mesh-independent: `decide_many` is elementwise per flow (each
+        device block of registry rows can evaluate its own span and the
+        concatenation equals the global call, see `shard_spans`), and
+        `allocate` stays GLOBAL: GAIMD's shared-bottleneck coupling sums
+        every flow's rate each step, and a sharded reduction could
+        reorder that float sum."""
+        self.mesh = mesh
+        self._rows.set_align(mesh.size if mesh is not None else 1)
+        if self._rows.capacity > self._r.shape[0]:
+            pad = self._rows.capacity - self._r.shape[0]
+            self._r = np.concatenate([self._r, np.zeros(pad, np.float32)])
+
+    def shard_spans(self):
+        """Contiguous per-device [lo, hi) row blocks of the flow axis
+        (mesh-aligned capacity). For any inputs, concatenating
+        decide_many over the live parts of these spans equals the global
+        decide_many row for row."""
+        return self._rows.shard_spans(
+            self.mesh.size if self.mesh is not None else 1)
 
     # -- flow membership (camera churn) --------------------------------
     def __len__(self) -> int:
@@ -347,7 +363,7 @@ class FleetTransmissionPlane:
                 "last_steps": self.last_steps}
 
     def load_state_dict(self, state: dict):
-        self._rows = RowRegistry()
+        self._rows = RowRegistry(align=self._rows.align)
         self._r = np.zeros(self._rows.capacity, np.float32)
         for sid in state["ids"]:
             self.add_flow(sid)

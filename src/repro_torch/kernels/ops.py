@@ -24,21 +24,31 @@ through its Pallas kernels, none of which has a backward pass: its
 same plain forms at its call site, and its eval forwards (under
 `torch.no_grad()`) take "auto", the kernels.
 
-The signatures are those of the JAX package's `kernels/ops.py` without
-its `mesh`/`shard` arguments (sharding comes with the port's distribution
-module); `ssd` and `mlstm` add `return_state` for the prefill's decode
-cache. Every op of the JAX module has its kernel here.
+The signatures are those of the JAX package's `kernels/ops.py`; `ssd` and
+`mlstm` add `return_state` for the prefill's decode cache. Every op of the
+JAX module has its kernel here.
+
+The fleet row-axis ops (`pairwise_js`, `fleet_drift`) also take `mesh`, a
+`launch.mesh.FleetMesh`. With a mesh the row axis is padded with zero
+rows to a multiple of the device count and the SAME wrapper runs once per
+contiguous block, on that block's device (`distributed.sharding.
+split_rows`): every row's math is unchanged, so the sharded result is
+bit-identical to one call, and each block on a CUDA device is one counted
+launch of the kernel. The blocks' results are concatenated on the mesh's
+first device with the padding sliced off.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import join_rows, split_rows
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.fleet_drift import fleet_drift as _fdrift
 from repro_torch.kernels.mlstm_scan import mlstm_scan as _mlstm
 from repro_torch.kernels.pairwise_js import pairwise_js as _pjs
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
+from repro_torch.launch.mesh import on_device
 
 IMPLS = ("auto", "autograd", "ref")
 AUTOGRAD = "autograd"
@@ -61,34 +71,82 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     raise _unknown("attention", impl, IMPLS)
 
 
-def pairwise_js(p, q, *, eps: float = 1e-12, impl: str = "auto"):
+def pairwise_js(p, q, *, eps: float = 1e-12, impl: str = "auto",
+                mesh=None, shard: str = "rows"):
     """(N, M) Jensen-Shannon divergence matrix. p: (N, B); q: (M, B).
 
     The drift-signature similarity engine for fleet-scale grouping: one
     call scores every request histogram against every candidate stream
-    signature (core.signature_index.SignatureIndex)."""
-    if impl == "ref":
-        return _ref.pairwise_js_ref(p, q, eps=eps)
-    if impl == "auto":
-        return _pjs(p, q, eps=eps)
-    raise _unknown("pairwise_js", impl)
+    signature (core.signature_index.SignatureIndex).
+
+    With `mesh`, one side is block-sharded across devices and the other
+    copied to each: shard="rows" splits p (each block an (N/D, M)
+    stripe), shard="cols" splits q (an (N, M/D) stripe; what the
+    signature index uses, since its fleet axis is q). Under shard="cols"
+    `q` may also be the list of its blocks already on their devices (the
+    index's device mirror); the result then keeps every block's columns,
+    padding included."""
+    if impl not in ("auto", "ref"):
+        raise _unknown("pairwise_js", impl)
+
+    def local(pp, qq):
+        if impl == "ref":
+            return _ref.pairwise_js_ref(pp, qq, eps=eps)
+        return _pjs(pp, qq, eps=eps)
+
+    if mesh is None:
+        return local(p, q)
+    if shard == "cols":
+        if isinstance(q, (list, tuple)):
+            blocks, m = list(q), sum(b.shape[0] for b in q)
+        else:
+            blocks, m = split_rows(q, mesh), q.shape[0]
+        parts = []
+        for b in blocks:
+            with on_device(b.device):
+                parts.append(local(p.to(b.device), b))
+        return join_rows(parts, m, mesh.devices[0], dim=1)
+    if shard != "rows":
+        raise ValueError(f"shard must be 'rows' or 'cols'; got {shard!r}")
+    parts = []
+    for b in split_rows(p, mesh):
+        with on_device(b.device):
+            parts.append(local(b, q.to(b.device)))
+    return join_rows(parts, p.shape[0], mesh.devices[0])
 
 
 def fleet_drift(tokens, ref, *, buckets: int, vocab: int = 0,
-                eps: float = 1e-12, impl: str = "auto"):
+                eps: float = 1e-12, impl: str = "auto", mesh=None):
     """Fused fleet drift scoring. tokens: (N, T) int; ref: (N, buckets).
 
     One call histograms every stream's live window and scores it with
     Jensen-Shannon divergence against that stream's reference — the
     batched replacement for the per-stream token_histogram +
     js_divergence loop (core.drift.FleetDriftDetector). Returns
-    (scores (N,) fp32, live hists (N, buckets) fp32)."""
-    if impl == "ref":
-        return _ref.fleet_drift_ref(tokens, ref, buckets=buckets,
-                                    vocab=vocab, eps=eps)
-    if impl == "auto":
-        return _fdrift(tokens, ref, buckets=buckets, vocab=vocab, eps=eps)
-    raise _unknown("fleet_drift", impl)
+    (scores (N,) fp32, live hists (N, buckets) fp32).
+
+    With `mesh`, the stream rows are block-sharded: each device scores
+    its own contiguous row block (tokens and references) with the same
+    kernel (histogram + JS are row-local)."""
+    if impl not in ("auto", "ref"):
+        raise _unknown("fleet_drift", impl)
+
+    def local(tok, r):
+        if impl == "ref":
+            return _ref.fleet_drift_ref(tok, r, buckets=buckets, vocab=vocab,
+                                        eps=eps)
+        return _fdrift(tok, r, buckets=buckets, vocab=vocab, eps=eps)
+
+    if mesh is None:
+        return local(tokens, ref)
+    scores, hists = [], []
+    for tok, r in zip(split_rows(tokens, mesh), split_rows(ref, mesh)):
+        with on_device(tok.device):
+            s, h = local(tok, r)
+        scores.append(s)
+        hists.append(h)
+    home, n = mesh.devices[0], tokens.shape[0]
+    return join_rows(scores, n, home), join_rows(hists, n, home)
 
 
 def ssd(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_state: bool = False,

@@ -1,0 +1,105 @@
+"""Device meshes for the fleet decision planes, ported from the JAX
+package's `launch/mesh.py`.
+
+The reference's fleet mesh is one process that places contiguous row
+blocks on its local devices and runs the same kernel on each block
+(`shard_map`). Its counterpart here is not `torch.distributed`, whose
+`DeviceMesh` is one process per rank, but `FleetMesh`: an ordered tuple of
+`torch.device` with named axes. A sharded op (`kernels/ops.py`) pads the
+row axis to a multiple of `size` with zero rows, launches the unchanged
+kernel on each contiguous block on that block's device (inside
+`on_device(block_device)`, on that device's current stream), concatenates
+the blocks on `devices[0]` and slices the padding off. Per-row math is
+unchanged, so results are bit-identical to one call.
+
+`make_fleet_mesh(n)` with no device list takes the first `n` CUDA devices
+and raises when there are fewer; it never drops to the CPU. An explicit
+device list may repeat a device: the CPU tests run eight `cpu` shards, and
+`chip_smoke.py` runs four `cuda:0` shards on one card. Placement on
+several cards is untested until a machine with several cards runs it.
+
+`make_production_mesh` (the dry run's 256-device mesh) is not here: it
+comes with `mesh_rules` (ROADMAP.md queue 1 item 9b).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetMesh:
+    """Devices laid out over named axes; row blocks shard along the
+    leading axis. `devices` is flat, in row-major order of `dims`."""
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...]
+    dims: Tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.dims):
+            raise ValueError(f"axes {self.axis_names} and shape {self.dims} "
+                             f"differ in rank")
+        if len(self.devices) != math.prod(self.dims):
+            raise ValueError(f"{len(self.devices)} devices for shape "
+                             f"{self.dims}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """{axis: size}, as the reference's `mesh.shape` reads."""
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def _cuda_devices(n: int):
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
+        raise RuntimeError(f"need {n} CUDA devices, have {have}; pass "
+                           f"devices= to place a mesh elsewhere")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
+              devices: Optional[Sequence] = None) -> FleetMesh:
+    """A mesh of `shape` over the first prod(shape) of `devices` (the CUDA
+    devices when None); raises when there are fewer."""
+    dims = tuple(int(s) for s in shape)
+    n = math.prod(dims)
+    devs = (_cuda_devices(n) if devices is None
+            else [torch.device(d) for d in devices][:n])
+    if len(devs) < n:
+        raise RuntimeError(f"need {n} devices, have {len(devs)}")
+    return FleetMesh(tuple(devs), tuple(axes), dims)
+
+
+def make_fleet_mesh(n_devices: Optional[int] = None, *, axis: str = "fleet",
+                    devices: Optional[Sequence] = None) -> FleetMesh:
+    """1-D mesh over the fleet row / job axis: what the JobBank's slot
+    stack, fleet_drift rows, decide_many flows and pairwise_js signatures
+    shard along. Defaults to every CUDA device; `n_devices` takes a prefix
+    (the elastic shrink passes the survivors)."""
+    if devices is None:
+        if n_devices is None:
+            n_devices = torch.cuda.device_count() \
+                if torch.cuda.is_available() else 0
+            if n_devices < 1:
+                raise RuntimeError("no CUDA device for a fleet mesh; pass "
+                                   "devices= to place one elsewhere")
+        devices = _cuda_devices(int(n_devices))
+    n = len(devices) if n_devices is None else int(n_devices)
+    return make_mesh((n,), (axis,), devices=devices)
+
+
+def on_device(device: torch.device):
+    """The context a block's launch runs in: its CUDA device made current
+    (the kernels launch on the current device's current stream), nothing
+    on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -3,7 +3,8 @@
 
 Runs the full control loop (drift detection -> dynamic grouping -> GPU
 allocation (Alg. 1) -> GAIMD transmission control -> group retraining)
-over a synthetic fleet:
+over a synthetic fleet, with checkpointing and an optional simulated
+failure and recovery:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --framework ecco --windows 12 --streams-per-region 3 --regions 2
@@ -14,10 +15,10 @@ baseline, so end-to-end comparisons (paper Fig. 6/7) run from one entry
 point. It runs on CUDA unless `--device cpu` is given, and raises when
 CUDA is missing. Weights are random, drawn from `--seed`.
 
-Not here yet: the reference's checkpointing and simulated recovery
-(`--ckpt-dir`, `--ckpt-every`, `--fail-at-window`) need the port's
-`distributed/checkpoint.py` (ROADMAP.md queue 1 item 9); `--ckpt-dir` and
-`--fail-at-window` raise.
+`--ckpt-dir` saves the first job's state every `--ckpt-every` windows
+(`distributed.checkpoint.AsyncCheckpointer`); `--fail-at-window W`, with
+a checkpoint directory, restores that job from the latest checkpoint
+before window W, writing through the JobBank, as the reference does.
 """
 from __future__ import annotations
 
@@ -74,11 +75,9 @@ def main(argv=None):
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None or args.fail_at_window is not None:
-        raise NotImplementedError(
-            "checkpointing and simulated recovery (--ckpt-dir, "
-            "--fail-at-window) are not ported yet (ROADMAP.md queue 1 "
-            "item 9)")
+    if args.ckpt_every < 1:
+        raise ValueError(f"--ckpt-every must be at least 1; got "
+                         f"{args.ckpt_every}")
     device = resolve_device(args.device)
 
     import dataclasses
@@ -102,12 +101,35 @@ def main(argv=None):
         switch_times=(args.switch_time,), seed=args.seed)
     ctl = build_controller(args, engine, streams)
 
+    ckpt = None
+    if args.ckpt_dir:
+        from repro_torch.distributed.checkpoint import AsyncCheckpointer
+        ckpt = AsyncCheckpointer(args.ckpt_dir)
+
     ctl.warmup()
     t0 = time.time()
     for w in range(args.windows):
+        if args.fail_at_window is not None and w == args.fail_at_window \
+                and ckpt is not None and ctl.jobs:
+            # simulate losing the job's device state mid-run; the restore
+            # writes through the JobBank and the next fleet call flushes
+            # it to the device
+            from repro_torch.distributed.checkpoint import (latest_step,
+                                                            restore_job)
+            ckpt.wait()
+            step = latest_step(args.ckpt_dir)
+            if step is not None:
+                j = ctl.jobs[0]
+                extra = restore_job(args.ckpt_dir, step, j)
+                print(f"[w{w}] recovered job {j.job_id} from "
+                      f"checkpoint step {step} (window {extra.get('window')})")
         wm = ctl.run_window()
         accs = {k: round(v, 3) for k, v in wm.per_stream_acc.items()}
         print(f"[w{w}] t={wm.t:6.1f} groups={wm.groups} acc={accs}")
+        if ckpt is not None and ctl.jobs and (w + 1) % args.ckpt_every == 0:
+            ckpt.save_async(w, ctl.jobs[0].state, extra={"window": w})
+    if ckpt is not None:
+        ckpt.wait()
 
     elapsed = time.time() - t0
     final = ctl.mean_accuracy(last_k=2)

@@ -23,7 +23,8 @@ Where a port can part from the reference quietly, this one follows it:
 `apply_moe_dropless` is the fleet decode's: each token routed as if
 alone (the reference vmaps a B = 1 decode per lane, where the capacity
 is 1 per expert and no pair can drop). The expert-parallel path
-(`apply_moe_ep`) waits for distribution (ROADMAP.md queue 1 item 9).
+(`apply_moe_ep`) waits for distribution's model half (ROADMAP.md queue 1
+item 9b).
 Experts are padded to a multiple of the EP shard count (1 until then);
 padded experts get -inf router logits.
 """
@@ -183,4 +184,4 @@ def apply_moe_dropless(cfg: ModelConfig, p, x):
 def apply_moe_ep(*args, **kwargs):
     raise NotImplementedError(
         "moe_impl='ep' (expert parallelism) not ported yet (ROADMAP.md "
-        "queue 1 item 9, distribution)")
+        "queue 1 item 9b, distribution's model half)")

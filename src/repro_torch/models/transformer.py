@@ -16,7 +16,8 @@ dense dispatch and sums its load-balance loss over the layers into `aux`;
 an encoder (hubert) attends without a causal mask and without RoPE and,
 like any config with `embedding_frontend`, takes float frame embeddings
 (B, S, d_model) for tokens. Expert parallelism (`moe_impl="ep"`) and
-tensor / expert padding wait for distribution (ROADMAP.md queue 1 item 9;
+tensor / expert padding wait for distribution's model half (ROADMAP.md
+queue 1 item 9b;
 `check_ported`).
 
 `kernel_impl` ("auto" or "ref") is handed to every kernel op of a call:
@@ -50,7 +51,7 @@ def check_ported(*, ep: int = 1, tp: int = 1, moe_impl: str = "dense"):
     if missing:
         raise NotImplementedError(
             f"{', '.join(missing)} not ported yet (ROADMAP.md queue 1 "
-            f"item 9, distribution)")
+            f"item 9b, distribution's model half)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,8 +18,8 @@ cache IN PLACE (the JAX version returns new arrays): the serving loop
 decodes contiguous slots on a view of its pool and keeps no returned
 cache. The sequence-parallel mLSTM of the JAX module
 (`mlstm_state_summary`, `combine_mlstm_states`,
-`apply_mlstm_block_seqpar`) arrives with the port's distribution module
-(ROADMAP.md, queue 1).
+`apply_mlstm_block_seqpar`) arrives with distribution's model half
+(ROADMAP.md queue 1 item 9b).
 
 Stabilisation follows the paper: running log-max state m with
   m_t = max(logsig(f) + m_{t-1}, i_t)

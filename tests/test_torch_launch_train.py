@@ -99,11 +99,16 @@ def test_launcher_agrees_with_the_reference(runs):
     assert any(w["groups"] for w in tj["history"])   # something grouped
 
 
-def test_checkpoint_flags_refused():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttrain.main(FLAGS + ["--device", "cpu", "--ckpt-dir", "x"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttrain.main(FLAGS + ["--device", "cpu", "--fail-at-window", "1"])
+def test_checkpoint_flags_refused(tmp_path):
+    """The checkpoint flags, refused until the port had checkpoints, now
+    run (tests/test_torch_checkpoint.py holds them to the reference);
+    what is refused is a checkpoint interval below one window."""
+    ttrain.main(FLAGS + ["--device", "cpu", "--ckpt-dir", str(tmp_path),
+                         "--ckpt-every", "1", "--fail-at-window", "1"])
+    assert sorted(os.listdir(tmp_path)) == ["step_00000000",
+                                            "step_00000001"]
+    with pytest.raises(ValueError, match="ckpt-every"):
+        ttrain.main(FLAGS + ["--device", "cpu", "--ckpt-every", "0"])
 
 
 def test_default_device_needs_cuda(monkeypatch):

@@ -8,9 +8,9 @@ job, same batch order) — so the decisions they feed are pinned.
 `SharedEngine(batched=False)` is the scalar reference twin: the same
 model config and seeds give the same initial states.
 
-One reference test is not restated yet:
-`test_checkpoint_restore_writes_through_cache` waits for the port's
-checkpoints (ROADMAP.md queue 1 item 9, distribution).
+`test_checkpoint_restore_writes_through_cache` is restated in
+tests/test_torch_checkpoint.py, beside the port's checkpoints, and the
+bank under a fleet mesh in tests/test_torch_distributed_bank.py.
 `test_allocator_decisions_identical_batched_vs_scalar` and the allocator
 tail of `test_residency_parity_across_churn` are in
 tests/test_torch_allocator.py, beside the port's allocator.
@@ -288,12 +288,18 @@ def test_job_handle_gc_returns_slot(engines):
     assert len(engine.bank) == n0
 
 
-def test_mesh_and_state_tree_mismatch_raise(engines):
+def test_mesh_and_state_tree_mismatch_raise(engines, monkeypatch):
+    """A mesh, refused until the bank could shard, is taken now (its
+    capacity aligned to the mesh); one the machine cannot hold raises,
+    and so does a state of another tree."""
+    from repro_torch.launch.mesh import make_fleet_mesh
     engine, _ = engines
-    with pytest.raises(NotImplementedError, match="item 9"):
-        JobBank(engine, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SharedEngine(_cfg(), device="cpu", mesh=object())
+    mesh = make_fleet_mesh(3, devices=["cpu"] * 3)
+    assert JobBank(engine, mesh=mesh).capacity == 6
+    assert SharedEngine(_cfg(), device="cpu", mesh=mesh).bank.mesh is mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        JobBank(engine, mesh=make_fleet_mesh(2))
     bank = JobBank(engine)
     bank.alloc(engine.fresh_state(0))
     with pytest.raises(ValueError, match="state tree mismatch"):

@@ -176,8 +176,16 @@ def test_state_dict_round_trip():
     assert len(other) == 3 and "b" in other
 
 
-def test_mesh_refused():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tx.FleetTransmissionPlane(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tx.FleetTransmissionPlane().set_mesh(None)
+def test_mesh_refused(monkeypatch):
+    """The plane under a mesh, refused until distribution's fleet half,
+    is taken now (capacity aligned, one span per device); a mesh of more
+    CUDA devices than the machine has is refused."""
+    from repro_torch.launch.mesh import make_fleet_mesh
+    plane = tx.FleetTransmissionPlane(
+        mesh=make_fleet_mesh(4, devices=["cpu"] * 4))
+    assert plane._rows.capacity % 4 == 0 and len(plane.shard_spans()) == 4
+    plane.set_mesh(None)
+    assert plane.shard_spans() == [(0, plane._rows.capacity)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tx.FleetTransmissionPlane(mesh=make_fleet_mesh(2))
