@@ -180,6 +180,26 @@ Phases, in order; the script exits non-zero at the first failure:
    and shares within WINDOW_ACC_GAP). (d) One full-width olmo-1b job
    state (14.12 GB) saved from its bank row, the row zeroed, restored
    through the bank: bit for bit; GB, save and restore seconds.
+6h. Distribution's model half on one card (`[model_mesh]`, after 6g;
+   meshes of repeated entries of this card). (a) qwen2-moe-a2.7b at its
+   published config, bf16, built with its 60 experts split over a (data
+   1, model 4) mesh, 15 an entry, `moe_impl="ep"`: a 512-token prefill
+   and 8 decode ticks, kernel route vs plain route at cf 1.25 (prefill
+   logits within LOGIT_TOL; keep masks and slots equal on every dispatch
+   whose routes agree, the rest counted), flash_attention launches held
+   to the reckoning; at a cf that drops nothing EP vs the dense dispatch
+   within LOGIT_TOL; ms per prefill and tick EP beside dense, peak memory
+   beside 57.3 GB. (b) xlstm-350m, fp32, the prefill of 1024 tokens with
+   `ssm_impl="seqpar"` on (model 4) vs unsharded: logits and every cache
+   leaf within 1e-4 relative (C and n in the invariant frame), 8 decode
+   ticks' top-1 equal where it leads by more than 1e-2, 96 mlstm_scan
+   launches (12 layers x 4 entries x 2 passes). (c) The seeded
+   mlstm_scan at (1, 256 and 200, 4, 512), bf16 and fp32, from a real
+   state, vs `mlstm_recurrent(init_state=...)`; no state and the zero
+   state bit for bit equal. (d) starcoder2-3b at tp 16 (32 q heads over 2
+   kv heads, GQA group 16): prefill logits kernel vs plain, the padded
+   heads masked to zero. (e) `pod_mean_compressed` over 2 pod entries on
+   olmo-1b's gradient shapes: equal to the CPU's bit for bit, GB/s.
 7. Time each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls) at the
    serving shapes, with CUDA events after warm-up, rotating input buffers
@@ -200,7 +220,10 @@ Phases, in order; the script exits non-zero at the first failure:
    `families_combine_launches`, and its qwen2-moe and hubert time rows;
    flash_attention's, fleet_drift's and pairwise_js's `[mesh]` (b) and
    (c) launches as `mesh_launches`, and fleet_drift's and pairwise_js's
-   (a) calls as `mesh_call` / `mesh_call_rows` / `mesh_call_cols`),
+   (a) calls as `mesh_call` / `mesh_call_rows` / `mesh_call_cols`;
+   flash_attention's `[model_mesh]` (a) and (d) launches and mlstm_scan's
+   (b) as `model_mesh_launches`, flash_attention's GQA-16 and window-eval
+   time rows, mlstm_scan's seeded and metered-eval rows),
    the nvidia-smi line
    again,
    and as the last line `{"ok": true, "device": {...}}`.
@@ -3485,6 +3508,386 @@ def mesh():
 
 
 # ---------------------------------------------------------------------------
+# phase 6h: distribution's model half on one card
+# ---------------------------------------------------------------------------
+MM_EP = 4                   # (a): model entries of the EP mesh (15 experts)
+MM_TICKS = 8                # (a): decode ticks after the prefill
+MM_CF, MM_NO_DROP_CF = 1.25, 16.0   # (a): 16 holds every token's pairs
+MM_SEQ = 4                  # (b): sequence shards of the seqpar mesh
+MM_REL = 1e-4               # (b): fp32, relative to the largest |value|
+MM_LEAD = 1e-2              # (b): decode tokens held where top-1 leads
+MM_SEEDED = ((256, torch.bfloat16), (256, torch.float32),
+             (200, torch.bfloat16), (200, torch.float32))   # (c): S, dtype
+MM_SEED_PREFIX = 128        # (c): steps whose state seeds the scan
+MM_TP = 16                  # (d): starcoder2-3b's 24 heads padded to 32
+MM_PODS = 2                 # (e): pod entries of the compressed mean
+
+
+def card_model_mesh(shape, axes):
+    """A model mesh of `shape` over `axes`, every entry this card."""
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return make_mesh(shape, axes, devices=[dev] * math.prod(shape))
+
+
+@contextlib.contextmanager
+def _ep_traces():
+    """Each `apply_moe_ep` call's per-entry dispatch (its `trace`): routed
+    ids, slots, keep masks and capacity, a list per call."""
+    from repro_torch.models import moe
+    traces, ep = [], moe.apply_moe_ep
+
+    def record(*args, **kwargs):
+        t = []
+        out = ep(*args, trace=t, **kwargs)
+        traces.append(t)
+        return out
+    moe.apply_moe_ep = record
+    try:
+        yield traces
+    finally:
+        moe.apply_moe_ep = ep
+
+
+def _mm_run(model, params, x, cap, tokens=None, **kw):
+    """A prefill of x and MM_TICKS decode ticks, greedy, or teacher-forced
+    on `tokens` (the input of each tick). Returns (prefill last-token
+    logits, each tick's logits, the ticks' input tokens, ms of the
+    prefill, ms per tick) by CUDA events."""
+    V = model.cfg.vocab_size
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with torch.no_grad():
+        ev[0].record()
+        last, cache, pos = model.prefill(params, x, cap, **kw)
+        ev[1].record()
+        ticks, inputs = [], []
+        tok = last[:, :V].argmax(-1, keepdim=True)
+        for i in range(MM_TICKS):
+            if tokens is not None:
+                tok = tokens[i]
+            inputs.append(tok)
+            lg, cache = model.decode(params, tok, cache, pos + i, **kw)
+            ticks.append(lg[:, -1])
+            tok = lg[:, -1, :V].argmax(-1, keepdim=True)
+        ev[2].record()
+    torch.cuda.synchronize()
+    return (last, ticks, inputs, ev[0].elapsed_time(ev[1]),
+            ev[1].elapsed_time(ev[2]) / MM_TICKS)
+
+
+def model_mesh_ep():
+    """[model_mesh] (a): qwen2-moe-a2.7b at its published config, bf16
+    parameters and compute as in [families], expert-parallel on a (data 1,
+    model 4) mesh of this card (15 experts an entry): a FAM_PROMPT-token
+    prefill and MM_TICKS decode ticks. At cf 1.25, kernel route vs
+    kernel_impl="ref" (teacher-forced on the kernel route's tokens):
+    prefill logits within LOGIT_TOL, and each entry's keep mask equal
+    wherever the two routes routed its tokens alike (the routes that
+    differ, counted). flash_attention launches held to the reckoning.
+    At a cf that drops nothing, EP vs the dense dispatch: logits within
+    LOGIT_TOL. ms per prefill and per tick, EP beside dense; peak memory
+    beside QWEN2_FP32_GB. Returns the kernel run's launches."""
+    bf16 = torch.bfloat16
+    cfg = get_config(QWEN2)
+    model = build_model(cfg, ep=MM_EP)
+    E = model.spec["segments"][0]["moe"]["wg"].shape[1]
+    # full width: 60 experts split 15 an entry, none padded
+    assert E % MM_EP == 0 and E - cfg.moe.num_experts < MM_EP
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, dtype=bf16, device=DEV)
+    mesh = card_model_mesh((1, MM_EP), ("data", "model"))
+    x = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(1, FAM_PROMPT)), device=DEV)
+    V = cfg.vocab_size
+    ep = dict(mesh=mesh, moe_impl="ep", capacity_factor=MM_CF)
+    reset_launches()
+    with _ep_traces() as kt:
+        k_last, k_ticks, toks, _, _ = _mm_run(model, params, x, FAM_CAP,
+                                              **ep)
+    launches = launch_counts()
+    want = expected_launches(cfg, 1, MM_TICKS)
+    assert launches == want, (launches, want)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    with _ep_traces() as rt:
+        r_last, r_ticks, _, _, _ = _mm_run(model, params, x, FAM_CAP,
+                                           tokens=toks, kernel_impl="ref",
+                                           **ep)
+    assert len(kt) == len(rt) == cfg.num_layers * (1 + MM_TICKS)
+    same = differ = 0
+    for kc, rc in zip(kt, rt):
+        assert len(kc) == len(rc) == MM_EP
+        for a, b in zip(kc, rc):
+            assert a["capacity"] == b["capacity"]
+            if torch.equal(a["ids"], b["ids"]):
+                assert torch.equal(a["keep"], b["keep"]) and torch.equal(
+                    a["slot"], b["slot"]), "keep masks differ on equal routes"
+                same += 1
+            else:
+                differ += 1
+    dropped = sum(int((~e["keep"]).sum()) for e in kt[0])
+    err = float((k_last[:, :V].float() - r_last[:, :V].float()).abs().max())
+    tick_err = max(float((a[:, :V].float() - b[:, :V].float()).abs().max())
+                   for a, b in zip(k_ticks, r_ticks))
+    C = kt[0][0]["capacity"]
+    print(f"[model_mesh] (a) {QWEN2} EP on (data 1, model {MM_EP}) of this "
+          f"card, cf {MM_CF} (capacity {C} per expert and source entry): "
+          f"prefill logits kernel vs plain max_abs_err={err:.4e} tol="
+          f"{LOGIT_TOL}; ticks {tick_err:.4e}; keep masks equal on all "
+          f"{same} (call, layer, entry) dispatches whose routes agree, "
+          f"routes differ on {differ}; {dropped} (token, k) pairs of layer "
+          f"0's prefill dropped; launches {launches}")
+    assert err <= LOGIT_TOL, err
+    # EP vs the dense dispatch at a cf that drops nothing
+    nd = dict(mesh=mesh, capacity_factor=MM_NO_DROP_CF)
+    e_last, e_ticks, _, _, _ = _mm_run(model, params, x, FAM_CAP,
+                                       moe_impl="ep", **nd)
+    d_last, d_ticks, _, _, _ = _mm_run(model, params, x, FAM_CAP,
+                                       tokens=toks, moe_impl="dense", **nd)
+    nd_err = float((e_last[:, :V].float() - d_last[:, :V].float())
+                   .abs().max())
+    print(f"[model_mesh] (a) cf {MM_NO_DROP_CF} (no drops): EP vs dense "
+          f"dispatch prefill logits max_abs_err={nd_err:.4e} tol="
+          f"{LOGIT_TOL}")
+    assert nd_err <= LOGIT_TOL, nd_err
+    times = {}
+    for impl in ("ep", "dense"):
+        kw = dict(mesh=mesh, moe_impl=impl, capacity_factor=MM_CF)
+        _mm_run(model, params, x, FAM_CAP, **kw)               # warm
+        runs = [_mm_run(model, params, x, FAM_CAP, **kw)[3:]
+                for _ in range(2)]
+        times[impl] = (min(r[0] for r in runs), min(r[1] for r in runs))
+    print(f"[model_mesh] (a) ms per {FAM_PROMPT}-token prefill / per tick "
+          f"(batch 1, best of 2, CUDA events): EP {times['ep'][0]:.2f} / "
+          f"{times['ep'][1]:.2f}, dense {times['dense'][0]:.2f} / "
+          f"{times['dense'][1]:.2f}; peak device memory over the init and "
+          f"the EP run {peak:.2f} GB (from {base / 1e9:.2f} GB) beside "
+          f"{QWEN2_FP32_GB} GB of fp32 parameters "
+          f"({model.num_params() * 2 / 1e9:.2f} GB in bf16)")
+    return launches
+
+
+def _rel(a, b):
+    """max |a - b| over max |b|."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def model_mesh_seqpar():
+    """[model_mesh] (b): xlstm-350m at its published config, fp32, the
+    prefill of an XL_PROMPT-token prompt with ssm_impl="seqpar" on a
+    (model 4) mesh of this card (shards of 256 steps, 4 chunks of 64) vs
+    the unsharded prefill: last logits and every mLSTM layer's C, n (in
+    the invariant frame of the larger m), m and conv within MM_REL of the
+    largest value; the sLSTM caches likewise; then MM_TICKS decode ticks
+    from each cache, teacher-forced on the unsharded run's tokens, equal
+    in top-1 wherever the unsharded top-1 leads by more than MM_LEAD.
+    mlstm_scan launches 12 layers x 4 entries x 2 passes. Returns them."""
+    f32 = torch.float32
+    cfg = get_config(XLSTM)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=DEV)
+    mesh = card_model_mesh((MM_SEQ,), ("model",))
+    x = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(1, XL_PROMPT)), device=DEV)
+    kw = dict(compute_dtype=f32, cache_dtype=f32)
+    cap = XL_PROMPT + MM_TICKS
+    layers = sum(s.count for s in layer_plan(cfg) if s.kind == "mlstm")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with torch.no_grad():
+        reset_launches()
+        ev[0].record()
+        l1, c1, p1 = model.prefill(params, x, cap, mesh=mesh,
+                                   ssm_impl="seqpar", **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        l0, c0, p0 = model.prefill(params, x, cap, **kw)
+        ev[2].record()
+    torch.cuda.synchronize()
+    assert launches["mlstm_scan"] == layers * MM_SEQ * 2, launches
+    assert p0 == p1 == XL_PROMPT
+    errs = {"logits": _rel(l1, l0)}
+    for i, (s0, s1) in enumerate(zip(c0["segments"], c1["segments"])):
+        if "C" in s0:
+            M = torch.maximum(s0["m"], s1["m"])
+            w0, w1 = torch.exp(s0["m"] - M), torch.exp(s1["m"] - M)
+            pairs = {"C": (s1["C"] * w1[..., None, None],
+                           s0["C"] * w0[..., None, None]),
+                     "n": (s1["n"] * w1[..., None], s0["n"] * w0[..., None]),
+                     "m": (s1["m"], s0["m"]), "conv": (s1["conv"], s0["conv"])}
+        else:
+            pairs = {k: (s1[k], s0[k]) for k in s0}
+        for k, (a, b) in pairs.items():
+            errs[f"seg{i}.{k}"] = _rel(a, b)
+    worst = max(errs, key=errs.get)
+    V = cfg.vocab_size
+    held = 0
+    with torch.no_grad():
+        tok = l0[:, :V].argmax(-1, keepdim=True)
+        for i in range(MM_TICKS):
+            d0, c0 = model.decode(params, tok, c0, p0 + i, compute_dtype=f32)
+            d1, c1 = model.decode(params, tok, c1, p1 + i, compute_dtype=f32)
+            top = d0[0, -1, :V].float().topk(2).values
+            if float(top[0] - top[1]) > MM_LEAD:
+                assert int(d1[0, -1, :V].argmax()) == \
+                    int(d0[0, -1, :V].argmax()), i
+                held += 1
+            tok = d0[:, -1, :V].argmax(-1, keepdim=True)
+    print(f"[model_mesh] (b) {XLSTM} seqpar prefill on (model {MM_SEQ}) of "
+          f"this card, fp32, S {XL_PROMPT}: {launches['mlstm_scan']} "
+          f"mlstm_scan launches ({layers} layers x {MM_SEQ} entries x 2 "
+          f"passes); vs unsharded: logits rel err {errs['logits']:.3e}, "
+          f"worst cache leaf {worst} {errs[worst]:.3e} (tol {MM_REL}); "
+          f"{held} of {MM_TICKS} decode tokens held (top-1 lead > "
+          f"{MM_LEAD}); ms seqpar {ev[0].elapsed_time(ev[1]):.1f}, "
+          f"unsharded {ev[1].elapsed_time(ev[2]):.1f}")
+    assert max(errs.values()) <= MM_REL, errs
+    return launches["mlstm_scan"]
+
+
+def _mlstm_seed(B, H, P, dtype, gen):
+    """A real state to start from: the token-by-token recurrence's over
+    MM_SEED_PREFIX steps of fresh inputs."""
+    args = _mlstm_inputs(B, MM_SEED_PREFIX, H, P, dtype, gen)
+    return mlstm_recurrent(*args, return_state=True)[1]
+
+
+def model_mesh_seeded():
+    """[model_mesh] (c): the seeded mlstm_scan at (1, S, 4, 512), S 256
+    and a ragged 200, bf16 (the tensor-core path) and fp32 (the CUDA-core
+    kernel), from the recurrence's state over MM_SEED_PREFIX steps: h
+    and the final state vs `mlstm_recurrent(init_state=...)` and h vs
+    `mlstm_chunked(init_state=...)` within TOL. Without a state, and
+    with the zero state given, each path gives the same results bit for
+    bit. Returns the largest error vs the oracle."""
+    gen = torch.Generator(device=DEV).manual_seed(24)
+    worst = 0.0
+    for S, dtype in MM_SEEDED:
+        shape = (1, S, XL_HEADS, XL_P)
+        args = _mlstm_inputs(*shape, dtype, gen)
+        seed = _mlstm_seed(1, XL_HEADS, XL_P, dtype, gen)
+        path = ml_plan(*args[:3], MLSTM_CHUNK)
+        assert path == (ML_TENSOR_CORE if dtype == torch.bfloat16
+                        else ML_CUDA_CORE)
+        h, st = mlstm_scan(*args, chunk=MLSTM_CHUNK, init_state=seed,
+                           return_state=True)
+        rh, rst = mlstm_recurrent(*args, init_state=seed, return_state=True)
+        ch = mlstm_chunked(*args, chunk=MLSTM_CHUNK, init_state=seed)
+        name = f"mlstm_scan seeded {str(dtype)[6:]} {shape}"
+        errs = [_check(f"{name} h vs token-by-token oracle", h, rh,
+                       TOL[dtype]),
+                _check(f"{name} h vs chunked", h, ch, TOL[dtype])]
+        errs += [_check(f"{name} state {leaf} vs token-by-token oracle", a,
+                        w, TOL[dtype]) for leaf, a, w in zip("Cnm", st, rst)]
+        worst = max(worst, *errs)
+        zero = (torch.zeros_like(seed[0]), torch.zeros_like(seed[1]),
+                torch.full_like(seed[2], -math.inf))
+        h0, st0 = mlstm_scan(*args, chunk=MLSTM_CHUNK, return_state=True)
+        hz, stz = mlstm_scan(*args, chunk=MLSTM_CHUNK, init_state=zero,
+                             return_state=True)
+        assert torch.equal(h0, hz) and all(
+            torch.equal(a, b) for a, b in zip(st0, stz)), name
+        print(f"[check] {name}: no state and the zero state bit for bit "
+              f"equal ok")
+    return worst
+
+
+def model_mesh_tp():
+    """[model_mesh] (d): starcoder2-3b at its published config built at
+    tp = 16: its 24 heads padded per kv group to 32 over 2 kv heads (GQA
+    group 16), bf16. A FAM_PROMPT-token prefill, kernel vs plain route,
+    last-token logits within LOGIT_TOL, one flash_attention launch a
+    layer; layer 0's attention: the padded heads' raw outputs nonzero,
+    masked to zero. Returns the launches."""
+    bf16 = torch.bfloat16
+    cfg = get_config("starcoder2-3b")
+    model = build_model(cfg, tp=MM_TP)
+    params = model.init(seed=0, dtype=bf16, device=DEV)
+    assert params["segments"][0]["attn"]["wq"].shape[2] == 32
+    x = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, size=(1, FAM_PROMPT)), device=DEV)
+    V = cfg.vocab_size
+    with torch.no_grad():
+        reset_launches()
+        got, _, _ = model.prefill(params, x, FAM_CAP)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want, _, _ = model.prefill(params, x, FAM_CAP, kernel_impl="ref")
+        assert launches == expected_launches(cfg, 1, 0), launches
+        seg = params["segments"][0]
+        lp = {k: tree_map(lambda t: t[0], seg[k]) for k in ("ln1", "attn")}
+        h = L.apply_norm(cfg, lp["ln1"], L.embed_tokens(params["embed"], x,
+                                                        bf16))
+        pos = torch.arange(FAM_PROMPT, device=DEV)[None]
+        q, k, v = L._qkv(cfg, lp["attn"], h, pos)
+        o = flash_attention(q, k, v, causal=True)
+        pad = ~L.head_mask(cfg, 32, torch.float32, DEV).bool()
+        masked = L._mask_heads(cfg, o)
+    err = float((got[:, :V].float() - want[:, :V].float()).abs().max())
+    raw = float(o[:, :, pad].float().abs().max())
+    assert int(pad.sum()) == 8 and raw > 0
+    assert bool((masked[:, :, pad] == 0).all())
+    print(f"[model_mesh] (d) starcoder2-3b at tp {MM_TP}: 32 q heads (8 "
+          f"padded) over 2 kv heads; prefill logits kernel vs plain "
+          f"max_abs_err={err:.4e} tol={LOGIT_TOL}; {launches['flash_attention']}"
+          f" flash_attention launches; layer 0's padded heads: raw output "
+          f"max |o| {raw:.3f}, masked to 0")
+    assert err <= LOGIT_TOL, err
+    return launches["flash_attention"]
+
+
+def model_mesh_compression():
+    """[model_mesh] (e): `pod_mean_compressed` over a 2-entry pod axis of
+    this card on a gradient tree of olmo-1b's shapes (normal draws, fp32,
+    4.71 GB), equal to the CPU's bit for bit; GB/s of gradient reduced
+    (CUDA events, best of 2)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.compression import pod_mean_compressed
+    spec = build_model(get_config(ARCH)).spec
+    gen = torch.Generator(device=DEV).manual_seed(25)
+    grads = tree_map(lambda s: torch.randn(s.shape, generator=gen,
+                                           device=DEV) * 1e-3, spec)
+    nbytes = sum(g.numel() * 4 for g in tree_leaves(grads))
+    mesh = card_model_mesh((MM_PODS,), ("pod",))
+    out = pod_mean_compressed(grads, mesh)
+    ms = []
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        pod_mean_compressed(grads, mesh)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    host = tree_map(lambda g: g.cpu(), grads)
+    del grads
+    cpu = pod_mean_compressed(host, make_mesh(
+        (MM_PODS,), ("pod",), devices=["cpu"] * MM_PODS))
+    for a, b in zip(tree_leaves(out), tree_leaves(cpu)):
+        assert torch.equal(a.cpu(), b), "card and CPU differ"
+    print(f"[model_mesh] (e) pod_mean_compressed (int8) over {MM_PODS} pod "
+          f"entries of this card, {ARCH}'s gradient shapes "
+          f"({nbytes / 1e9:.2f} GB fp32): equal to the CPU's bit for bit; "
+          f"{min(ms):.1f} ms, {nbytes / min(ms) / 1e6:.1f} GB/s")
+
+
+def model_mesh():
+    """[model_mesh]: (a)-(e); returns (flash_attention launches of (a) and
+    (d), mlstm_scan launches of (b), (c)'s largest error)."""
+    _free_device()
+    ep = model_mesh_ep()
+    _free_device()
+    seqpar = model_mesh_seqpar()
+    _free_device()
+    seeded = model_mesh_seeded()
+    tp = model_mesh_tp()
+    _free_device()
+    model_mesh_compression()
+    _free_device()
+    return ep["flash_attention"] + tp, seqpar, seeded
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing
 # ---------------------------------------------------------------------------
 def _time_ms(fn, sets, iters=50, warmup=5):
@@ -3625,16 +4028,16 @@ def time_attention(pk):
                       .to(dtype or t.dtype).contiguous()
                       for i, t in enumerate(s)) for s in sets_]
 
-    def prefill(name, S, H, K, hd, dtype):
-        sets = [(_randn((1, S, H, hd), dtype, gen),
-                 _randn((1, S, K, hd), dtype, gen),
-                 _randn((1, S, K, hd), dtype, gen)) for _ in range(8)]
+    def prefill(name, S, H, K, hd, dtype, B=1):
+        sets = [(_randn((B, S, H, hd), dtype, gen),
+                 _randn((B, S, K, hd), dtype, gen),
+                 _randn((B, S, K, hd), dtype, gen)) for _ in range(8)]
         el = sets[0][0].element_size()
         pairs = S * (S + 1) // 2                  # visible (query, key)
         rows[name] = _attention_row(
-            f"q (1,{S},{H},{hd}), k,v (1,{S},{K},{hd}) {str(dtype)[6:]} "
-            f"causal", sets, sdpa(sets, H // K), True,
-            2 * S * (H + K) * hd * el, 4 * H * pairs * hd, dtype, pk)
+            f"q ({B},{S},{H},{hd}), k,v ({B},{S},{K},{hd}) "
+            f"{str(dtype)[6:]} causal", sets, sdpa(sets, H // K), True,
+            2 * B * S * (H + K) * hd * el, 4 * B * H * pairs * hd, dtype, pk)
 
     def decode(name, T, cap, H, K, hd, qdt):
         caches = [(_randn((SLOTS, 1, H, hd), qdt, gen),
@@ -3714,6 +4117,11 @@ def time_attention(pk):
     decode("qwen2moe_decode", DECODE_T, SERVING[QWEN2]["capacity"], 16, 16,
            128, bf16)
     encode("hubert_encode", HU_FRAMES[0], HU_FRAMES[1], 16, 80)
+    # [model_mesh] (d): starcoder2-3b at tp 16, 32 padded q heads over 2 kv
+    # heads (GQA group 16); the window loop's fp32 eval forward of olmo-1b
+    # (128 members' 32-token rows, the CUDA-core kernel)
+    prefill("starcoder2_tp16_prefill", FAM_PROMPT, 32, 2, 128, bf16)
+    prefill("window_eval_fp32", 32, 16, 16, 128, f32, B=128)
     for name, r in rows.items():
         _print_time(f"flash_attention {name}", r)
     return rows
@@ -3873,16 +4281,17 @@ def time_pairwise_js(pk, cap):
     return rows
 
 
-def mlstm_cost(B, S, H, P, Q):
+def mlstm_cost(B, S, H, P, Q, el=2, seeded=False):
     """(bytes, operations) the mLSTM scan must move and do at these
-    shapes in bf16 with the state out: q, k, v and the two gates read
-    once, h and the fp32 state (C, n, m) written once; per chunk of L
-    steps and head, the causal q k^T and w v triangles (L (L + 1) / 2 P
-    multiply-adds each), q C^T and the state update (L P^2 each), q . n
-    and the normaliser update (L P each), an exponential counted as
-    nothing."""
-    nbytes = 2 * (4 * B * S * H * P + 2 * B * S * H) + 4 * B * H * (
-        P * P + P + 1)
+    shapes in an `el`-byte dtype (bf16 by default) with the state out: q,
+    k, v and the two gates read once, h and the fp32 state (C, n, m)
+    written once, and with `seeded` the fp32 initial state read once; per
+    chunk of L steps and head, the causal q k^T and w v triangles
+    (L (L + 1) / 2 P multiply-adds each), q C^T and the state update
+    (L P^2 each), q . n and the normaliser update (L P each), an
+    exponential counted as nothing."""
+    nbytes = el * (4 * B * S * H * P + 2 * B * S * H) + 4 * B * H * (
+        P * P + P + 1) * (2 if seeded else 1)
     macs = 0
     for t0 in range(0, S, Q):
         L = min(Q, S - t0)
@@ -3896,36 +4305,62 @@ def time_mlstm(pk):
     L2); the device time sums the tensor-core path's four kernels. Bounds
     from `mlstm_cost` by the units the kernel uses: its products on bf16
     tensor cores (the share), and beside it the fp32 CUDA-core bound that
-    PR 14's kernel was held to."""
-    bf16 = torch.bfloat16
+    PR 14's kernel was held to. Then the same beside it for the seqpar
+    output pass ([model_mesh] (c): (1, 256, 4, 512) from an initial
+    state, bf16 and fp32, the state read once more) and the metered
+    window's xlstm eval forwards ((128, 32, 4, 512): bf16 screens on the
+    tensor cores, fp32 rescores on the CUDA-core kernel)."""
+    bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=DEV).manual_seed(10)
-    B, S, H, P, Q = 1, XL_PROMPT, XL_HEADS, XL_P, MLSTM_CHUNK
-    sets = [_mlstm_inputs(B, S, H, P, bf16, gen) for _ in range(10)]
-    assert ml_plan(*sets[0][:3], Q) == ML_TENSOR_CORE
-    nbytes, flops = mlstm_cost(B, S, H, P, Q)
-    bound = _bound(nbytes, flops, bf16, pk)
 
-    def kern(*a):
-        return mlstm_scan(*a, chunk=Q, return_state=True)
+    def row(B, S, dtype, seeded=False, n_sets=10):
+        H, P, Q = XL_HEADS, XL_P, MLSTM_CHUNK
+        sets = [_mlstm_inputs(B, S, H, P, dtype, gen) for _ in range(n_sets)]
+        seeds = [_mlstm_seed(B, H, P, dtype, gen) if seeded else None
+                 for _ in range(n_sets)]
+        sets = [a + (st,) for a, st in zip(sets, seeds)]
+        path = ml_plan(*sets[0][:3], min(Q, S))
+        assert path == (ML_TENSOR_CORE if dtype == bf16 else ML_CUDA_CORE)
+        nbytes, flops = mlstm_cost(B, S, H, P, Q,
+                                   el=torch.finfo(dtype).bits // 8,
+                                   seeded=seeded)
+        bound = _bound(nbytes, flops, dtype, pk)
 
-    def plain(*a):
-        return mlstm_chunked(*a, chunk=Q, return_state=True)
+        def kern(*a):
+            return mlstm_scan(*a[:5], chunk=Q, init_state=a[5],
+                              return_state=True)
 
-    r = dict(shape=f"q,k,v ({B},{S},{H},{P}) bf16, chunk {Q}, state out",
-             ms=_time_ms(kern, sets),
-             device_ms=_device_ms(kern, sets, ML_TC_KERNELS,
-                                  bound_ms=bound[0]),
-             plain_ms=_time_ms(plain, sets, iters=10),
-             library_ms=None,
-             bound=bound,
-             bound_cuda_core=_bound(nbytes, flops, torch.float32, pk))
+        def plain(*a):
+            return mlstm_chunked(*a[:5], chunk=Q, init_state=a[5],
+                                 return_state=True)
+
+        return dict(shape=f"q,k,v ({B},{S},{H},{P}) {str(dtype)[6:]}, chunk "
+                          f"{min(Q, S)}, state out"
+                          f"{', from an initial state' if seeded else ''}",
+                    ms=_time_ms(kern, sets),
+                    device_ms=_device_ms(kern, sets, ML_TC_KERNELS
+                                         if path == ML_TENSOR_CORE
+                                         else ML_CC_KERNELS,
+                                         bound_ms=bound[0]),
+                    plain_ms=_time_ms(plain, sets, iters=10),
+                    library_ms=None, bound=bound,
+                    bound_cuda_core=_bound(nbytes, flops, f32, pk),
+                    nbytes=nbytes, flops=flops)
+
+    r = row(1, XL_PROMPT, bf16)
     bcc, bycc = r["bound_cuda_core"]
-    print(f"[time] mlstm_scan least work: {nbytes / 1e6:.2f} MB, "
-          f"{flops / 1e9:.3f} GFLOP; bound on bf16 tensor cores "
+    print(f"[time] mlstm_scan least work: {r['nbytes'] / 1e6:.2f} MB, "
+          f"{r['flops'] / 1e9:.3f} GFLOP; bound on bf16 tensor cores "
           f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), on fp32 CUDA cores "
           f"{bcc:.4f} ms ({bycc}, kernel at {100 * bcc / r['device_ms']:.1f}% "
           f"of it)")
     _print_time("mlstm_scan", r)
+    for name, args in (("seeded", (1, 256, bf16, True)),
+                       ("seeded_fp32", (1, 256, f32, True)),
+                       ("metered_eval", (128, 32, bf16, False, 4)),
+                       ("metered_eval_fp32", (128, 32, f32, False, 4))):
+        r[name] = row(*args)
+        _print_time(f"mlstm_scan {name}", r[name])
     return r
 
 
@@ -4034,6 +4469,7 @@ def main():
     fam = phase("families", families)
     _free_device()
     mesh_calls, mesh_launches, mesh_ckpt = phase("mesh", mesh)
+    mm_flash, mm_mlstm, mm_seeded_err = phase("model_mesh", model_mesh)
     torch.cuda.empty_cache()
     att = phase("time flash_attention", time_attention, pk)
     phase("sweep flash_attention plans", sweep_attention_plans)
@@ -4064,7 +4500,9 @@ def main():
                     hymba_decode_ragged=att["hymba_decode_ragged"],
                     qwen2moe_prefill=att["qwen2moe_prefill"],
                     qwen2moe_decode=att["qwen2moe_decode"],
-                    hubert_encode=att["hubert_encode"]),
+                    hubert_encode=att["hubert_encode"],
+                    starcoder2_tp16_prefill=att["starcoder2_tp16_prefill"],
+                    window_eval_fp32=att["window_eval_fp32"]),
              combine_launches=launches["flash_attention_combine"],
              hymba_launches=hymba["flash_attention"],
              hymba_combine_launches=hymba["flash_attention_combine"],
@@ -4074,6 +4512,7 @@ def main():
              fleet_launches=fleet[0], fleet_combine_launches=fleet[1],
              families_launches=fam[0], families_combine_launches=fam[1],
              mesh_launches=mesh_launches["flash_attention"],
+             model_mesh_launches=mm_flash,
              tensor_core_hmma=hmma),
         dict(_entry("fleet_drift", *src["fleet_drift"],
                     launches["fleet_drift"], err["fleet_drift"], fd),
@@ -4095,9 +4534,14 @@ def main():
                     err["ssd_scan"], ssd),
              bound_cuda_core_ms=ssd["bound_cuda_core"][0]),
         dict(_entry("mlstm_scan", *src["mlstm_scan"], launches["mlstm_scan"],
-                    err["mlstm_scan"], ml),
+                    err["mlstm_scan"], ml, seeded=ml["seeded"],
+                    seeded_fp32=ml["seeded_fp32"],
+                    metered_eval=ml["metered_eval"],
+                    metered_eval_fp32=ml["metered_eval_fp32"]),
              bound_cuda_core_ms=ml["bound_cuda_core"][0],
-             meter_launches=meter["mlstm_scan"]),
+             meter_launches=meter["mlstm_scan"],
+             model_mesh_launches=mm_mlstm,
+             seeded_max_abs_err=mm_seeded_err),
     ]
     assert [e["name"] for e in kernels] == [k[0] for k in KERNELS]
     for e in kernels:

@@ -147,12 +147,16 @@ class TrainConfig:
 
 def check_train_config(tcfg: TrainConfig):
     """Raise NotImplementedError for a field the port's train step does not
-    have yet, rather than train without it."""
+    honour, rather than train without it: remat (not ported yet), and
+    compress_pod_grads, which no train step of either package reads."""
     if tcfg.remat != "none":
         raise NotImplementedError(
             f"remat={tcfg.remat!r} not ported yet (ROADMAP.md queue 1 item "
             f"10, launch/train.py); use remat='none'")
     if tcfg.compress_pod_grads:
         raise NotImplementedError(
-            "compress_pod_grads not ported yet (ROADMAP.md queue 1 item 9b, "
-            "distribution)")
+            "compress_pod_grads is read by no train step of the reference "
+            "(its train_step never calls pod_mean_compressed; ROADMAP.md, "
+            "defects of the reference): the port keeps refusing it rather "
+            "than add a feature the reference lacks. "
+            "train.compression holds the functions themselves")

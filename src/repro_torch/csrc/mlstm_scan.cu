@@ -19,6 +19,13 @@
 // copies), so a ragged last chunk leaves the final state equal to the
 // token-by-token recurrence's.
 //
+// An optional initial state (C0 (B,H,P,P), n0 (B,H,P), m0 (B,H), fp32,
+// contiguous) seeds the walk in place of C = 0, n = 0, m = -inf: the
+// seeded output pass of the sequence-parallel mLSTM, whose shards start
+// from the combined state of the shards before them (the reference's
+// `mlstm_chunked(init_state=...)`). With none given, every kernel runs
+// exactly as before.
+//
 // What bounds it on this card: per chunk and head the causal q k^T and
 // w v triangles and the two Q P^2 products (q C^T and the state update),
 // against Q (3 P + 2) elements read and Q P written. At xlstm-350m's
@@ -105,6 +112,9 @@ struct Params {
   float* C;  // (B, H, P, P) or null
   float* n;  // (B, H, P)
   float* m;  // (B, H)
+  const float* C0;  // initial state (B, H, P, P) or null (zero state)
+  const float* n0;  // (B, H, P)
+  const float* m0;  // (B, H)
   int B, S, H, P, Q;
   float scale;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
@@ -165,9 +175,19 @@ __global__ void __launch_bounds__(kThreads) mlstm_scan_kernel(Params p) {
   T* h = static_cast<T*>(p.h) + b * p.h_sb + hh * p.h_sh;
   const int ty = tid >> 4, tx = tid & 15;  // q k^T micro-tile coordinates
 
-  for (int e = tid; e < P * kPT; e += kThreads) Cs[e] = 0.f;
-  for (int e = tid; e < P; e += kThreads) ns[e] = 0.f;
-  float m_prev = -INFINITY;
+  if (p.C0 != nullptr) {  // rows p0 .. p0 + 31 of the initial state
+    const float* Cin = p.C0 + static_cast<long long>(bh) * P * P;
+    for (int e = tid; e < P * kPT; e += kThreads) {
+      const int r = e / kPT, c = e - r * kPT;
+      Cs[e] = p0 + c < P ? Cin[static_cast<long long>(p0 + c) * P + r] : 0.f;
+    }
+    for (int e = tid; e < P; e += kThreads)
+      ns[e] = p.n0[static_cast<long long>(bh) * P + e];
+  } else {
+    for (int e = tid; e < P * kPT; e += kThreads) Cs[e] = 0.f;
+    for (int e = tid; e < P; e += kThreads) ns[e] = 0.f;
+  }
+  float m_prev = p.m0 != nullptr ? p.m0[bh] : -INFINITY;
 
   for (int t0 = 0; t0 < p.S; t0 += p.Q) {
     const int len = min(p.Q, p.S - t0);
@@ -402,13 +422,20 @@ struct Scratch {
   float* rowsum;  // (BH, nch, QT) row sums of W
   bf16* W;        // (BH, nch, 2, QT, QT) W as hi, lo
   float* nloc;    // (BH, nch, P) sum_j e^{a_j - m'} k_j of each chunk
-  float* nprev;   // (BH, nch - 1, P) n entering chunks 1 ..
-  bf16* Cprev;    // (BH, nch - 1, 2, P, P) C entering chunks 1 .., hi, lo
+  float* nprev;   // (BH, ns, P) n entering chunks 1 .. (0 .. when seeded)
+  bf16* Cprev;    // (BH, ns, 2, P, P) C entering them, hi, lo
 };
 
-size_t carve(Scratch* s, char* base, int BH, int nch, int Q, int QT, int P) {
+// chunk-entry states kept: those of chunks 1 .., and chunk 0's too when an
+// initial state seeds it
+__host__ __device__ __forceinline__ int entry_states(int nch, bool seeded) {
+  return seeded ? nch : nch - 1;
+}
+
+size_t carve(Scratch* s, char* base, int BH, int nch, int Q, int QT, int P,
+             bool seeded) {
   const long long Sp = static_cast<long long>(nch) * Q;
-  const long long ns = nch - 1;  // chunk-entry states kept
+  const long long ns = entry_states(nch, seeded);
   const long long sizes[14] = {
       4 * BH * Sp, 4 * BH * Sp, 4 * BH * Sp, 4 * BH * Sp, 4 * BH * Sp,
       4LL * BH * nch, 4LL * BH * nch, 4LL * BH * nch, 4LL * BH * nch,
@@ -609,7 +636,7 @@ __global__ void __launch_bounds__(kGateThreads)
   __syncthreads();
   // m over the chunks: m' = max(b_Q + m, max_j a_j), 32 chunks per batch
   if (warp == 0) {
-    float m = -INFINITY;
+    float m = p.m0 != nullptr ? p.m0[bh] : -INFINITY;
     for (int c0 = 0; c0 < nch; c0 += 32) {
       const int c = c0 + lane;
       const float bq = c < nch ? cb[c] : 0.f, am = c < nch ? ca[c] : 0.f;
@@ -788,13 +815,59 @@ __global__ void __launch_bounds__(128) mlstm_state_kernel(Params p,
   const float* nloc = s.nloc + static_cast<long long>(bh) * nch * P + r0 + tid;
   const bool carry_n = blockIdx.y == 0 && tid < kTile && r0 + tid < P;
   const int g = lane >> 2, t4 = lane & 3;
+  const bool seeded = p.C0 != nullptr;
+  const int ns = entry_states(nch, seeded);
 
+  // the tile's state, as mma accumulators: the initial state's or zeros
   float acc[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float nr = 0.f;
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = r0 + n * 8 + 2 * t4, pr = p0 + warp * 16 + g + 8 * h2;
+      float2 c0 = make_float2(0.f, 0.f);
+      if (seeded && pr < P && r < P)
+        c0 = *reinterpret_cast<const float2*>(
+            p.C0 + (static_cast<long long>(bh) * P + pr) * P + r);
+      acc[n][2 * h2] = c0.x;
+      acc[n][2 * h2 + 1] = c0.y;
+    }
+  float nr = seeded && carry_n
+                 ? p.n0[static_cast<long long>(bh) * P + r0 + tid]
+                 : 0.f;
+
+  // the tile of the state entering a chunk, hi and lo, through shared
+  // memory (the w v tiles, free whenever this is called) as whole 16-byte
+  // pieces; n likewise
+  auto store_entry = [&](long long slot) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        unsigned hi, lo;
+        split_pack(acc[n][2 * h2], acc[n][2 * h2 + 1], hi, lo);
+        const int off = (warp * 16 + g + 8 * h2) * kLD + n * 8 + 2 * t4;
+        *reinterpret_cast<unsigned*>(VWh + off) = hi;
+        *reinterpret_cast<unsigned*>(VWl + off) = lo;
+      }
+    __syncthreads();
+    bf16* Ch = s.Cprev + slot * 2 * P * P;
+#pragma unroll
+    for (int i = 0; i < 2 * kTile * 8 / NTH; ++i) {
+      const int e = tid + i * NTH, pl = e / (kTile * 8);
+      const int r = (e / 8) % kTile, cc = (e % 8) * 8;
+      if (p0 + r < P && r0 + cc < P)
+        *reinterpret_cast<float4*>(Ch + pl * P * P +
+                                   static_cast<long long>(p0 + r) * P + r0 +
+                                   cc) =
+            *reinterpret_cast<const float4*>((pl ? VWl : VWh) + r * kLD + cc);
+    }
+    if (carry_n) s.nprev[slot * P + r0 + tid] = nr;
+  };
+  if (seeded) {  // chunk 0 enters with the initial state
+    store_entry(static_cast<long long>(bh) * ns);
+    __syncthreads();  // before the first chunk's w v overwrite the tiles
+  }
 
   stage64<QT, NTH>(Vr, v, p.v_ss, min(p.Q, p.S), p0, P, tid);
   stage64<QT, NTH>(Kr, k, p.k_ss, min(p.Q, p.S), r0, P, tid);
@@ -853,33 +926,8 @@ __global__ void __launch_bounds__(128) mlstm_state_kernel(Params p,
     }
     nr = fmaf(wo, nr, nl);
     __syncthreads();  // the w v tiles are free again
-    if (c + 1 < nch) {  // the entry state of chunk c + 1, hi and lo
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2) {
-          unsigned hi, lo;
-          split_pack(acc[n][2 * h2], acc[n][2 * h2 + 1], hi, lo);
-          const int off = (warp * 16 + g + 8 * h2) * kLD + n * 8 + 2 * t4;
-          *reinterpret_cast<unsigned*>(VWh + off) = hi;
-          *reinterpret_cast<unsigned*>(VWl + off) = lo;
-        }
-      __syncthreads();
-      const long long slot = static_cast<long long>(bh) * (nch - 1) + c;
-      bf16* Ch = s.Cprev + slot * 2 * P * P;
-#pragma unroll
-      for (int i = 0; i < 2 * kTile * 8 / NTH; ++i) {
-        const int e = tid + i * NTH, pl = e / (kTile * 8);
-        const int r = (e / 8) % kTile, cc = (e % 8) * 8;
-        if (p0 + r < P && r0 + cc < P)
-          *reinterpret_cast<float4*>(Ch + pl * P * P +
-                                     static_cast<long long>(p0 + r) * P + r0 +
-                                     cc) =
-              *reinterpret_cast<const float4*>((pl ? VWl : VWh) + r * kLD +
-                                               cc);
-      }
-      if (carry_n) s.nprev[slot * P + r0 + tid] = nr;
-    }
+    if (c + 1 < nch)  // the entry state of chunk c + 1
+      store_entry(static_cast<long long>(bh) * ns + c + (seeded ? 1 : 0));
     wo = wo_next;
     nl = nl_next;
   }
@@ -953,8 +1001,12 @@ __global__ void __launch_bounds__(QT * 2) mlstm_out_kernel(Params p,
       cp_async16(ns + buf * kTile + tid * 4, npg + (e < P ? e : 0), e < P);
     }
   };
-  if (c > 0) {
-    const long long slot = static_cast<long long>(bh) * (nch - 1) + c - 1;
+  const bool seeded = p.C0 != nullptr;
+  const bool inter = c > 0 || seeded;  // an entry state to read
+  if (inter) {
+    const long long slot =
+        static_cast<long long>(bh) * entry_states(nch, seeded) + c -
+        (seeded ? 0 : 1);
     Chg = s.Cprev + slot * 2 * P * P;
     npg = s.nprev + slot * P;
     stage_inter(0, 0);
@@ -989,7 +1041,7 @@ __global__ void __launch_bounds__(QT * 2) mlstm_out_kernel(Params p,
 
   const int row = tid >> 1, half = tid & 1;  // q . n_prev: 2 threads a row
   float qpart = 0.f;
-  if (c > 0) {
+  if (inter) {
     for (int kt = 0; kt < nk; ++kt) {
       if (kt + 1 < nk) {
         stage_inter(kt + 1, (kt + 1) & 1);
@@ -1073,8 +1125,8 @@ int launch_tensor_core(const Params& p, void* scratch,
   if (BH > 65535 || nch > 65535 || (p.P & 7) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Scratch s;
-  if (carve(&s, static_cast<char*>(scratch), BH, nch, p.Q, QT, p.P) >
-      static_cast<size_t>(scratch_bytes))
+  if (carve(&s, static_cast<char*>(scratch), BH, nch, p.Q, QT, p.P,
+            p.C0 != nullptr) > static_cast<size_t>(scratch_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t qk_smem = sizeof(bf16) * 4 * QT * kLD + sizeof(float) * 3 * QT;
   const size_t st_smem = sizeof(bf16) * 6 * QT * kLD + sizeof(float) * 2 * QT;
@@ -1104,10 +1156,13 @@ extern "C" {
 // take (batch, seq, head) strides in elements; the last dim of q, k, v and
 // h is contiguous. Q is the chunk (1..128), scale the factor on q
 // (1/sqrt(P)). C (B,H,P,P), n (B,H,P) and m (B,H) contiguous, or C null
-// for no state. Returns the CUDA error of the launch (0 on success).
+// for no state; C0, n0, m0 the initial state, fp32 and contiguous in the
+// same shapes, or C0 null for the zero state. Returns the CUDA error of
+// the launch (0 on success).
 int mlstm_scan_fwd(int dtype, int path, const void* q, const void* k,
                    const void* v, const void* ig, const void* fg, void* h,
-                   void* C, void* n, void* m, void* scratch,
+                   void* C, void* n, void* m, const void* C0, const void* n0,
+                   const void* m0, void* scratch,
                    long long scratch_bytes, int B, int S, int H, int P, int Q,
                    float scale, long long q_sb, long long q_ss, long long q_sh,
                    long long k_sb, long long k_ss, long long k_sh,
@@ -1121,8 +1176,12 @@ int mlstm_scan_fwd(int dtype, int path, const void* q, const void* k,
       static_cast<long long>(B) * H > 2147483647LL ||
       (P + kPT - 1) / kPT > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((C0 == nullptr) != (n0 == nullptr) || (C0 == nullptr) != (m0 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, ig, fg, h, static_cast<float*>(C), static_cast<float*>(n),
-           static_cast<float*>(m), B, S, H, P, Q, scale,
+           static_cast<float*>(m), static_cast<const float*>(C0),
+           static_cast<const float*>(n0), static_cast<const float*>(m0),
+           B, S, H, P, Q, scale,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            i_sb, i_ss, i_sh, f_sb, f_ss, f_sh, h_sb, h_ss, h_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -15,8 +15,33 @@ places each block itself: `row_spans` are the contiguous [lo, hi) blocks,
 `block_devices` their devices, `split_rows` pads a row array and puts each
 block on its device, `join_rows` concatenates per-block results on
 `devices[0]`, and `BlockRows` holds a (capacity, ...) stack as one tensor
-per block. `mesh_rules` and `batch_pspec` (model-level sharding over the
-production mesh) are not here: ROADMAP.md queue 1 item 9b.
+per block.
+
+The model half, `mesh_rules` and `batch_pspec`, maps logical axis names
+onto the production mesh, with the reference's two policies:
+
+``tp``, the paper-faithful baseline (MaxText-style 2D sharding):
+  * batch           -> (pod, data)         pure DP across pods + data rows
+  * vocab/heads/mlp -> model               Megatron tensor parallelism
+  * experts         -> model               expert parallelism (MoE)
+  * fsdp            -> data                ZeRO-3 parameter+optimizer shard
+  * kv_heads        -> model when divisible, else replicated
+  * heads           -> model when the padded head count divides it
+                       (`models.layers.padded_heads`: starcoder2's 24
+                       heads -> 32), else replicated (hymba's 25)
+  * seq             -> model (Megatron-SP between blocks)
+
+``zero``, pure DP + ZeRO-3 for train and prefill:
+  * batch           -> (pod, data)
+  * heads/kv_heads/mlp/seq -> None
+  * vocab, experts  -> model
+  * fsdp            -> data; ("data", "model") for dense archs over
+                       `_FSDP2D_PARAM_THRESHOLD` parameters whose d_model
+                       divides both axes, where vocab then reverts to None.
+
+A pspec is a plain tuple, one entry per dim (None, an axis name or a
+tuple of names), as `models.param.logical_to_pspec` builds it. Both
+functions read only `mesh.shape`, so a shape-only stand-in serves.
 """
 from __future__ import annotations
 
@@ -24,6 +49,72 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+# beyond this many params, fp32 param+Adam state (16 B/param -> 1 B/param
+# per chip at 16-way ZeRO) exceeds a chip's memory share and params must
+# shard over both mesh axes (256-way)
+_FSDP2D_PARAM_THRESHOLD = 12e9
+
+
+def mesh_rules(mesh, cfg=None, *, fsdp: bool = True,
+               policy: str = "tp") -> dict:
+    """{logical axis: mesh axis, tuple of axes, or None} for `mesh` under
+    `policy` ("tp" or "zero"); `cfg` (a ModelConfig) refines the heads,
+    kv_heads and fsdp rules."""
+    axes = dict(mesh.shape)
+    model_n = axes.get("model", 1)
+    batch = tuple(a for a in ("pod", "data") if a in axes)
+    batch_rule = batch if len(batch) > 1 else (batch[0] if batch else None)
+    data_n = axes.get("data", 1)
+
+    if policy == "zero":
+        rules = {
+            "batch": batch_rule,
+            "vocab": "model" if model_n > 1 else None,
+            "mlp": None,
+            "experts": "model" if model_n > 1 else None,
+            "heads": None,
+            "kv_heads": None,
+            "fsdp": "data" if (fsdp and data_n > 1) else None,
+            "seq": None,
+            "layers": None,
+        }
+        if cfg is not None and fsdp and model_n > 1 and data_n > 1 \
+                and cfg.moe is None \
+                and cfg.param_count() > _FSDP2D_PARAM_THRESHOLD \
+                and cfg.d_model % (data_n * model_n) == 0:
+            rules["fsdp"] = ("data", "model")
+            rules["vocab"] = None      # embed table: fsdp owns both axes
+        return rules
+
+    if policy != "tp":
+        raise ValueError(f"unknown policy {policy!r}; use 'tp' or 'zero'")
+    on = "model" if model_n > 1 else None
+    rules = {
+        "batch": batch_rule,
+        "vocab": on,
+        "mlp": on,
+        "experts": on,
+        "heads": on,
+        "kv_heads": on,
+        "fsdp": "data" if (fsdp and data_n > 1) else None,
+        "seq": on,
+        "layers": None,
+    }
+    if cfg is not None and model_n > 1:
+        if cfg.num_kv_heads % model_n != 0:
+            rules["kv_heads"] = None          # replicate small KV-head sets
+        from repro_torch.models.layers import padded_heads
+        if padded_heads(cfg, model_n) % model_n != 0:
+            rules["heads"] = None             # padding too wasteful
+    return rules
+
+
+def batch_pspec(mesh) -> tuple:
+    """The pspec of a (batch, ...) input: its leading dim over the batch
+    axes present ("pod", "data"), as one name or a tuple of two."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    return (axes if len(axes) > 1 else axes[0],)
 
 
 def fleet_axis(mesh) -> str:

@@ -11,7 +11,9 @@ the chunkwise-parallel form that `ref.mlstm_chunk_parallel` transcribes),
 everything else to the CUDA-core kernel.
 
 `mlstm_scan(q, k, v, igate, fgate)` launches the kernel for CUDA tensors
-and raises on anything the kernel does not take. For CPU tensors it
+and raises on anything the kernel does not take. `init_state` (C0, n0,
+m0) seeds the walk in place of the zero state (the sequence-parallel
+mLSTM's output pass); without it the kernels run as before. For CPU tensors it
 computes the plain version `ref.mlstm_chunked` (the CPU tests' path); no
 CUDA call ever falls back to it, and no call under autograd reaches
 either: with grad mode on and an input that requires grad the wrapper
@@ -57,15 +59,16 @@ def tensor_core_tile(Q: int) -> int:
     return 64 if Q <= 64 else 128
 
 
-def scratch_bytes(B: int, S: int, H: int, P: int, Q: int) -> int:
+def scratch_bytes(B: int, S: int, H: int, P: int, Q: int,
+                  seeded: bool = False) -> int:
     """Scratch of the tensor-core path (csrc/mlstm_scan.cu `carve`): per
     head five fp32 per-step gate arrays, four fp32 per-chunk ones, the row
     sums, W (hi, lo bf16) and own normaliser sum of every chunk, and n and
-    C (hi, lo bf16) entering every chunk after the first; each rounded up
-    to 256 bytes."""
+    C (hi, lo bf16) entering every chunk after the first (every chunk when
+    an initial state seeds the walk); each rounded up to 256 bytes."""
     BH, nch, QT = B * H, -(-S // Q), tensor_core_tile(Q)
     Sp = nch * Q
-    kept = nch - 1
+    kept = nch if seeded else nch - 1
     sizes = [4 * BH * Sp] * 5 + [4 * BH * nch] * 4 + [
         4 * BH * nch * QT, 2 * BH * nch * 2 * QT * QT, 4 * BH * nch * P,
         4 * BH * kept * P, 2 * BH * kept * 2 * P * P]
@@ -93,7 +96,7 @@ def _library():
     fn = lib.mlstm_scan_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 13
                        + [ctypes.c_longlong] + [ctypes.c_int] * 5
                        + [ctypes.c_float]
                        + [ctypes.c_longlong] * 18 + [ctypes.c_void_p])
@@ -134,19 +137,41 @@ def _check(q, k, v, igate, fgate, Q):
     return path
 
 
+def _initial_state(init_state, B, H, P, device):
+    """The initial state as fp32 contiguous (C0 (B,H,P,P), n0 (B,H,P),
+    m0 (B,H)) on `device`; raises on other shapes."""
+    want = ((B, H, P, P), (B, H, P), (B, H))
+    if len(init_state) != 3:
+        raise ValueError("init_state is (C, n, m)")
+    out = []
+    for name, t, shape in zip(("C", "n", "m"), init_state, want):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"init_state {name} {tuple(t.shape)}, want "
+                             f"{shape}")
+        if t.device != device:
+            raise ValueError(f"init_state {name} is on {t.device}, q on "
+                             f"{device}")
+        out.append(t.to(torch.float32).contiguous())
+    return out
+
+
 def mlstm_scan(q, k, v, igate, fgate, *, chunk: int = 128,
-               return_state: bool = False):
+               return_state: bool = False, init_state=None):
     """q, k, v: (B,S,H,P); igate, fgate: (B,S,H) raw preactivations, all in
-    one dtype (fp32 or bf16). Chunks of min(chunk, S) steps.
+    one dtype (fp32 or bf16). Chunks of min(chunk, S) steps. `init_state`,
+    when given, is (C (B,H,P,P), n (B,H,P), m (B,H)), the state the walk
+    starts from (cast to fp32), in place of C = 0, n = 0, m = -inf.
 
     Any of the five may be a strided view (the model's einsum outputs, the
     split gate projection); only the last dim of q, k and v must be
     contiguous. Returns h (B,S,H,P) in q.dtype, and with `return_state`
     also the final state (C (B,H,P,P), n (B,H,P), m (B,H)) in fp32.
     """
-    _build.refuse_grad("mlstm_scan", q, k, v, igate, fgate)
+    _build.refuse_grad("mlstm_scan", q, k, v, igate, fgate,
+                       *(init_state or ()))
     if q.device.type == "cpu":
         return mlstm_chunked(q, k, v, igate, fgate, chunk=chunk,
+                             init_state=init_state,
                              return_state=return_state)
     if q.device.type != "cuda":
         raise ValueError(f"no mlstm_scan for device {q.device}")
@@ -156,6 +181,8 @@ def mlstm_scan(q, k, v, igate, fgate, *, chunk: int = 128,
     Q = min(chunk, S) if S else 1
     path = _check(q, k, v, igate, fgate, Q)
     dev = q.device
+    seed = (None if init_state is None
+            else _initial_state(init_state, B, H, P, dev))
     h = torch.empty((B, S, H, P), dtype=q.dtype, device=dev)
     state = None
     if return_state:
@@ -164,24 +191,28 @@ def mlstm_scan(q, k, v, igate, fgate, *, chunk: int = 128,
                  torch.empty((B, H), dtype=torch.float32, device=dev))
     if h.numel() == 0:
         if state is not None:
-            state[0].zero_()
-            state[1].zero_()
-            state[2].fill_(-math.inf)
+            if seed is None:
+                state[0].zero_()
+                state[1].zero_()
+                state[2].fill_(-math.inf)
+            else:
+                for out, s0 in zip(state, seed):
+                    out.copy_(s0)
         return (h, state) if return_state else h
     lib = _library()
     C, n, m = state if state is not None else (None, None, None)
+    C0, n0, m0 = seed if seed is not None else (None, None, None)
     scratch, nbytes = None, 0
     if path == TENSOR_CORE:
-        nbytes = scratch_bytes(B, S, H, P, Q)
+        nbytes = scratch_bytes(B, S, H, P, Q, seeded=seed is not None)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mlstm_scan_fwd(
             _DTYPES[q.dtype], path, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             igate.data_ptr(), fgate.data_ptr(), h.data_ptr(),
-            None if C is None else C.data_ptr(),
-            None if n is None else n.data_ptr(),
-            None if m is None else m.data_ptr(),
+            *(None if t is None else t.data_ptr()
+              for t in (C, n, m, C0, n0, m0)),
             None if scratch is None else scratch.data_ptr(), nbytes,
             B, S, H, P, Q,
             1.0 / math.sqrt(P), *q.stride()[:3], *k.stride()[:3],

@@ -171,8 +171,10 @@ def ssd(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_state: bool = False,
 
 
 def mlstm(q, k, v, igate, fgate, *, chunk: int = 128,
-          return_state: bool = False, impl: str = "auto"):
-    """Chunkwise mLSTM. q,k,v: (B,S,H,P); gates: (B,S,H) raw, q's dtype.
+          return_state: bool = False, init_state=None, impl: str = "auto"):
+    """Chunkwise mLSTM. q,k,v: (B,S,H,P); gates: (B,S,H) raw, q's dtype;
+    `init_state` an optional (C (B,H,P,P), n (B,H,P), m (B,H)) fp32 state
+    to start from (the zero state when None).
 
     Returns h (B,S,H,P) in q.dtype [, final state (C (B,H,P,P), n (B,H,P),
     m (B,H)) fp32]. "auto" runs the `mlstm_scan` kernel on a CUDA tensor and
@@ -181,11 +183,13 @@ def mlstm(q, k, v, igate, fgate, *, chunk: int = 128,
     token-by-token oracle `ref.mlstm_recurrent`."""
     if impl == "ref":
         return _ref.mlstm_recurrent(q, k, v, igate, fgate,
+                                    init_state=init_state,
                                     return_state=return_state)
     if impl == AUTOGRAD:
         return _ref.mlstm_chunked(q, k, v, igate, fgate, chunk=chunk,
+                                  init_state=init_state,
                                   return_state=return_state)
     if impl == "auto":
         return _mlstm(q, k, v, igate, fgate, chunk=chunk,
-                      return_state=return_state)
+                      return_state=return_state, init_state=init_state)
     raise _unknown("mlstm", impl, IMPLS)

@@ -18,15 +18,21 @@ device list may repeat a device: the CPU tests run eight `cpu` shards, and
 `chip_smoke.py` runs four `cuda:0` shards on one card. Placement on
 several cards is untested until a machine with several cards runs it.
 
-`make_production_mesh` (the dry run's 256-device mesh) is not here: it
-comes with `mesh_rules` (ROADMAP.md queue 1 item 9b).
+The model half runs on the same mesh: `make_production_mesh` lays out the
+reference's (16, 16) ("data", "model") or (2, 16, 16) ("pod", "data",
+"model") mesh, and the expert-parallel MoE (`models/moe.apply_moe_ep`)
+and the sequence-parallel mLSTM (`models/xlstm.
+apply_mlstm_block_seqpar`) run their `shard_map` bodies once per entry
+(`FleetMesh.device_at`), each on its entry's device, with the
+collectives as tensor moves between the entries.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,6 +62,23 @@ class FleetMesh:
     def size(self) -> int:
         return len(self.devices)
 
+    def device_at(self, **index: int) -> torch.device:
+        """The device of the entry at `index` ({axis: position}; an axis
+        left out is taken at 0)."""
+        flat = 0
+        for name, dim in zip(self.axis_names, self.dims):
+            i = int(index.get(name, 0))
+            if not 0 <= i < dim:
+                raise IndexError(f"{name}={i} outside [0, {dim})")
+            flat = flat * dim + i
+        return self.devices[flat]
+
+    def positions(self, axes: Sequence[str]) -> Iterator[Dict[str, int]]:
+        """Every {axis: position} over `axes`, in row-major order (the
+        order of a tiled concatenation over those axes)."""
+        for idx in itertools.product(*(range(self.shape[a]) for a in axes)):
+            yield dict(zip(axes, idx))
+
 
 def _cuda_devices(n: int):
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -76,6 +99,18 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     if len(devs) < n:
         raise RuntimeError(f"need {n} devices, have {len(devs)}")
     return FleetMesh(tuple(devs), tuple(axes), dims)
+
+
+def make_production_mesh(multi_pod: bool = False, *,
+                         devices: Optional[Sequence] = None) -> FleetMesh:
+    """The reference's production mesh: (16, 16) over ("data", "model"),
+    or (2, 16, 16) over ("pod", "data", "model"). With no device list it
+    takes CUDA devices and raises when there are fewer than it needs (256
+    or 512); it never drops to the CPU. An explicit list may repeat a
+    device, as `make_mesh`'s does (the CPU tests, the dry run)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=devices)
 
 
 def make_fleet_mesh(n_devices: Optional[int] = None, *, axis: str = "fleet",

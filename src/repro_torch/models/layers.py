@@ -11,9 +11,14 @@ when the caller already holds them in it); norms and softmax run in fp32.
 Full attention goes through `kernels.ops.attention`: the Hopper kernel
 for CUDA tensors, the plain version for CPU tensors. Windowed attention
 (blockwise window plus meta prefix) and ring-cache decode are plain
-PyTorch, as the JAX package runs them in XLA. Tensor-parallel head
-padding of the JAX module waits for distribution (ROADMAP.md queue 1 item
-9); `transformer.check_ported` refuses it.
+PyTorch, as the JAX package runs them in XLA.
+
+Every spec names the reference's logical axes (`distributed.sharding.
+mesh_rules` maps them onto a mesh). Tensor parallelism pads the query
+heads per KV group (`padded_heads`) so the head axis divides the model
+axis; the padded heads' outputs are zeroed before the output projection
+(`_mask_heads`), as in the reference, so they add nothing and receive no
+gradient.
 """
 from __future__ import annotations
 
@@ -35,11 +40,12 @@ F32 = torch.float32
 # Norms
 # ---------------------------------------------------------------------------
 def norm_spec(cfg: ModelConfig):
+    d = cfg.d_model
     if cfg.norm == "rmsnorm":
-        return {"scale": Spec((cfg.d_model,), "ones")}
+        return {"scale": Spec((d,), (None,), "ones")}
     if cfg.norm == "layernorm":
-        return {"scale": Spec((cfg.d_model,), "ones"),
-                "bias": Spec((cfg.d_model,), "zeros")}
+        return {"scale": Spec((d,), (None,), "ones"),
+                "bias": Spec((d,), (None,), "zeros")}
     if cfg.norm == "nonparam_ln":   # olmo: no learnable affine
         return {}
     raise ValueError(cfg.norm)
@@ -92,18 +98,54 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
-def attention_spec(cfg: ModelConfig):
-    d, hd = cfg.d_model, cfg.resolved_head_dim
+MAX_HEAD_PAD_RATIO = 1.5
+
+
+def padded_heads(cfg: ModelConfig, tp: int) -> int:
+    """Query-head count padded *per KV group* so the head axis shards
+    `tp`-ways while keeping the GQA head -> kv mapping (head i uses kv
+    head i // G_pad). cfg.num_heads unchanged when no padding is needed or
+    when padding would waste more than MAX_HEAD_PAD_RATIO (the sharding
+    policy then replicates heads instead, `mesh_rules`)."""
     H, K = cfg.num_heads, cfg.num_kv_heads
+    if tp <= 1 or H % tp == 0:
+        return H
+    g = H // K
+    while (K * g) % tp:
+        g += 1
+    H_pad = K * g
+    return H_pad if H_pad <= MAX_HEAD_PAD_RATIO * H else H
+
+
+def head_mask(cfg: ModelConfig, H_pad: int, dtype, device=None):
+    """(H_pad,) 1/0 mask of real vs padded q heads; None when unpadded."""
+    if H_pad == cfg.num_heads:
+        return None
+    G_pad = H_pad // cfg.num_kv_heads
+    G = cfg.num_heads // cfg.num_kv_heads
+    return (torch.arange(H_pad, device=device) % G_pad < G).to(dtype)
+
+
+def _mask_heads(cfg: ModelConfig, o):
+    """Zero the padded heads of o (..., H_pad, hd) so they add nothing to
+    the output projection and receive no gradient."""
+    m = head_mask(cfg, o.shape[-2], o.dtype, o.device)
+    return o if m is None else o * m[:, None]
+
+
+def attention_spec(cfg: ModelConfig, tp: int = 1):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, K = padded_heads(cfg, tp), cfg.num_kv_heads
     spec = {
-        "wq": Spec((d, H, hd)),
-        "wk": Spec((d, K, hd)),
-        "wv": Spec((d, K, hd)),
-        "wo": Spec((H, hd, d), scale=1.0 / math.sqrt(2 * cfg.num_layers)),
+        "wq": Spec((d, H, hd), ("fsdp", "heads", None)),
+        "wk": Spec((d, K, hd), ("fsdp", "kv_heads", None)),
+        "wv": Spec((d, K, hd), ("fsdp", "kv_heads", None)),
+        "wo": Spec((H, hd, d), ("heads", None, "fsdp"),
+                   scale=1.0 / math.sqrt(2 * cfg.num_layers)),
     }
     if cfg.qk_norm:
-        spec["q_norm"] = Spec((hd,), "ones")
-        spec["k_norm"] = Spec((hd,), "ones")
+        spec["q_norm"] = Spec((hd,), (None,), "ones")
+        spec["k_norm"] = Spec((hd,), (None,), "ones")
     return spec
 
 
@@ -169,7 +211,8 @@ def attention_full(cfg: ModelConfig, p, x, positions, *, causal: bool,
     x: (B,S,D). Returns (out (B,S,D), (k, v)) with k, v (B,S,K,hd) after
     RoPE, the rows prefill writes into the decode cache."""
     q, k, v = _qkv(cfg, p, x, positions)
-    o = ops.attention(q, k, v, causal=causal, impl=kernel_impl)
+    o = _mask_heads(cfg, ops.attention(q, k, v, causal=causal,
+                                       impl=kernel_impl))
     return _out_proj(o, p["wo"], x.dtype), (k, v)
 
 
@@ -227,7 +270,7 @@ def attention_windowed(cfg: ModelConfig, p, x, positions, *, window: int,
 
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("bnhac,bnchd->bnahd", probs.to(vcat.dtype), vcat)
-    o = o.reshape(B, n * w, H, hd)[:, :S]
+    o = _mask_heads(cfg, o.reshape(B, n * w, H, hd)[:, :S])
     return _out_proj(o, p["wo"], x.dtype), (k, v)
 
 
@@ -276,7 +319,7 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *,
         q, k, v = _qkv(cfg, p, x, pos[:, None])
         o = decode_attend(q, k, v, cache, lanes(pos), window=window,
                           meta=meta, kernel_impl=kernel_impl)
-        return _out_proj(o, p["wo"], x.dtype), cache
+        return _out_proj(_mask_heads(cfg, o), p["wo"], x.dtype), cache
     B = x.shape[0]
     positions = torch.full((B, 1), pos, device=x.device)
     q, k, v = _qkv(cfg, p, x, positions)                 # k,v: (B,1,K,hd)
@@ -286,7 +329,7 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *,
         cv[:, pos] = v[:, 0].to(cv.dtype)
         o = ops.attention(q, ck[:, :pos + 1], cv[:, :pos + 1], causal=True,
                           impl=kernel_impl)
-        return _out_proj(o, p["wo"], x.dtype), cache
+        return _out_proj(_mask_heads(cfg, o), p["wo"], x.dtype), cache
 
     wcap = ck.shape[1]
     slot = pos % wcap
@@ -301,6 +344,7 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *,
         scores = torch.cat([_gqa_scores(q, cache["mk"]), scores], dim=-1)
         vv = torch.cat([cache["mv"], cv], dim=1)
     o = _gqa_out(torch.softmax(scores, dim=-1), vv, x.dtype)
+    o = _mask_heads(cfg, o)
     return _out_proj(o, p["wo"], x.dtype), cache
 
 
@@ -348,11 +392,13 @@ def decode_attend(q, k, v, cache, ln: Lanes, *, window: int, meta: int,
 # ---------------------------------------------------------------------------
 def mlp_spec(cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
-    down = Spec((f, d), scale=1.0 / math.sqrt(2 * cfg.num_layers))
+    down = Spec((f, d), ("mlp", "fsdp"),
+                scale=1.0 / math.sqrt(2 * cfg.num_layers))
     if cfg.act == "swiglu":
-        return {"w_gate": Spec((d, f)), "w_up": Spec((d, f)),
+        return {"w_gate": Spec((d, f), ("fsdp", "mlp")),
+                "w_up": Spec((d, f), ("fsdp", "mlp")),
                 "w_down": down}
-    return {"w_in": Spec((d, f)), "w_down": down}
+    return {"w_in": Spec((d, f), ("fsdp", "mlp")), "w_down": down}
 
 
 def apply_mlp(cfg: ModelConfig, p, x):
@@ -374,9 +420,9 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 def embedding_spec(cfg: ModelConfig):
     V = padded_vocab(cfg)
-    spec = {"table": Spec((V, cfg.d_model), "embed")}
+    spec = {"table": Spec((V, cfg.d_model), ("vocab", "fsdp"), "embed")}
     if not cfg.tie_embeddings:
-        spec["unembed"] = Spec((cfg.d_model, V), "embed")
+        spec["unembed"] = Spec((cfg.d_model, V), ("fsdp", "vocab"), "embed")
     return spec
 
 

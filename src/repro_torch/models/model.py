@@ -8,10 +8,14 @@
 
 Parameters and caches are nested dicts of tensors on one device; compute
 runs where they lie. `capacity_factor` sets a MoE model's per-expert
-capacity, as in the JAX package; `moe_impl` is "dense" (expert
-parallelism, "ep", waits for distribution and raises). `init` and
-`init_cache` default to CUDA and raise when it is missing (pass
-device="cpu" for the CPU).
+capacity, as in the JAX package. `build_model(cfg, ep=, tp=)` pads the
+experts and the query heads for a sharded model; `apply` / `prefill` /
+`decode` take the reference's `mesh`, `rules` (through a `ShardCtx`),
+`moe_impl` ("dense" or "ep") and, for the forward and prefill, `ssm_impl`
+("gspmd" or "seqpar"). `param_shardings`, `abstract_params` and
+`abstract_cache` give the pspec tuples and the per-entry `meta` blocks of
+the dry run. `init` and `init_cache` default to CUDA and raise when it is
+missing (pass device="cpu" for the CPU).
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ from repro_torch.models import transformer as T
 class Model:
     cfg: ModelConfig
     spec: Any
+    ep: int = 1
+    tp: int = 1
 
     # ---- parameters -------------------------------------------------------
     def init(self, seed: int = 0, dtype=torch.float32, device="cuda"):
@@ -38,38 +44,53 @@ class Model:
         gen.manual_seed(seed)
         return P.init_params(self.spec, gen, dtype)
 
+    def abstract_params(self, mesh, rules, dtype=torch.float32):
+        return P.abstract_params(self.spec, mesh, rules, dtype)
+
+    def param_shardings(self, mesh, rules):
+        return P.shardings(self.spec, mesh, rules)
+
     def num_params(self) -> int:
         return P.param_count(self.spec)
 
     # ---- compute ----------------------------------------------------------
     def apply(self, params, inputs, *, compute_dtype=torch.bfloat16,
               kernel_impl: str = "auto", capacity_factor: float = 1.25,
-              moe_impl: str = "dense"):
-        T.check_ported(moe_impl=moe_impl)
+              moe_impl: str = "dense", mesh=None, rules=None,
+              ssm_impl: str = "gspmd"):
+        T.check_ported(moe_impl=moe_impl, ssm_impl=ssm_impl)
         logits, aux, _ = T.forward(self.cfg, params, inputs,
                                    compute_dtype=compute_dtype,
                                    kernel_impl=kernel_impl,
-                                   capacity_factor=capacity_factor)
+                                   capacity_factor=capacity_factor,
+                                   ctx=_ctx(mesh, rules), moe_impl=moe_impl,
+                                   mesh=mesh, ssm_impl=ssm_impl)
         return logits, aux
 
     def prefill(self, params, inputs, cap: int, *,
                 compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
                 kernel_impl: str = "auto", capacity_factor: float = 1.25,
-                moe_impl: str = "dense"):
-        T.check_ported(moe_impl=moe_impl)
+                moe_impl: str = "dense", mesh=None, rules=None,
+                ssm_impl: str = "gspmd"):
+        T.check_ported(moe_impl=moe_impl, ssm_impl=ssm_impl)
         return T.prefill(self.cfg, params, inputs, cap,
                          compute_dtype=compute_dtype,
                          cache_dtype=cache_dtype, kernel_impl=kernel_impl,
-                         capacity_factor=capacity_factor)
+                         capacity_factor=capacity_factor,
+                         ctx=_ctx(mesh, rules), moe_impl=moe_impl,
+                         mesh=mesh, ssm_impl=ssm_impl)
 
     def decode(self, params, token, cache, pos, *,
                compute_dtype=torch.bfloat16, kernel_impl: str = "auto",
-               capacity_factor: float = 1.25, moe_impl: str = "dense"):
+               capacity_factor: float = 1.25, moe_impl: str = "dense",
+               mesh=None, rules=None):
         T.check_ported(moe_impl=moe_impl)
         return T.decode_step(self.cfg, params, token, cache, pos,
                              compute_dtype=compute_dtype,
                              kernel_impl=kernel_impl,
-                             capacity_factor=capacity_factor)
+                             capacity_factor=capacity_factor,
+                             ctx=_ctx(mesh, rules), moe_impl=moe_impl,
+                             mesh=mesh)
 
     # ---- cache ------------------------------------------------------------
     def cache_spec(self, batch: int, cap: int):
@@ -91,8 +112,17 @@ class Model:
 
         return P.tree_map(leaf, self.cache_spec(batch, cap))
 
+    def abstract_cache(self, batch: int, cap: int, mesh, rules,
+                       dtype=torch.bfloat16):
+        return P.abstract_params(self.cache_spec(batch, cap), mesh, rules,
+                                 dtype)
+
+
+def _ctx(mesh, rules):
+    return T.ShardCtx(mesh, rules) if mesh is not None else T.NULL_CTX
+
 
 def build_model(cfg: ModelConfig, *, ep: int = 1, tp: int = 1) -> Model:
-    """`ep` / `tp` other than 1 (expert and head padding for a sharded
-    model) raise until distribution is ported."""
-    return Model(cfg=cfg, spec=T.build_spec(cfg, ep=ep, tp=tp))
+    """`ep` pads the MoE experts to a multiple of it, `tp` the query heads
+    per KV group (`layers.padded_heads`)."""
+    return Model(cfg=cfg, spec=T.build_spec(cfg, ep=ep, tp=tp), ep=ep, tp=tp)

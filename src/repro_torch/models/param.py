@@ -1,27 +1,43 @@
 """Parameter spec trees.
 
 A model is described by a nested dict of `Spec` leaves, as in the JAX
-package's `models/param.py`. `init_params` materializes it from an
-explicit `torch.Generator` on the generator's device. The numbers differ
-from `jax.random` for the same seed; tests that compare the two packages
-bridge the JAX parameters instead (`models/convert.py`).
+package's `models/param.py`. From the spec tree:
+  * `init_params` materializes it from an explicit `torch.Generator` on
+    the generator's device. The numbers differ from `jax.random` for the
+    same seed; tests that compare the two packages bridge the JAX
+    parameters instead (`models/convert.py`);
+  * `shardings` gives each leaf its partition spec, resolved from the
+    logical axis names on its dims through a rules dict
+    (`distributed.sharding.mesh_rules`);
+  * `abstract_params` gives each leaf as a `meta` tensor of the block one
+    mesh entry holds: the dry run's stand-ins, no allocation.
+
+The port has no `PartitionSpec`: a pspec is a plain tuple with one entry
+per dim, None, a mesh axis name or a tuple of names, which is what the
+reference's `PartitionSpec` holds (`tuple(pspec)` compares equal).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 
 @dataclasses.dataclass(frozen=True)
 class Spec:
-    """One parameter: its shape and init rule. (The JAX Spec also names a
-    logical sharding axis per dim; the port does not shard yet.)"""
+    """One parameter: its shape, the logical axis name of each dim (or
+    None), and its init rule."""
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # logical axis name per dim (or None)
     init: str = "normal"              # normal | zeros | ones | neg_inf | embed
     scale: float = 1.0                # fan-in style scale multiplier
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             f"differ in rank")
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -82,5 +98,45 @@ def init_params(spec_tree, generator: torch.Generator,
     return tree_map(lambda s: _init_leaf(s, generator, dtype), spec_tree)
 
 
+def logical_to_pspec(axes: Sequence[Optional[str]], rules: dict) -> tuple:
+    """Logical axis names -> a pspec tuple through `rules` (a name the
+    rules do not hold maps to None, replicated)."""
+    return tuple(None if name is None else rules.get(name) for name in axes)
+
+
+def shardings(spec_tree, mesh, rules):
+    """The pspec tuple of every leaf, in the spec tree's structure. Only
+    the rules are read; `mesh` is taken for the reference's signature."""
+    return tree_map(lambda s: logical_to_pspec(s.axes, rules), spec_tree)
+
+
+def _ways(entry, mesh_shape) -> int:
+    if entry is None:
+        return 1
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return math.prod(int(mesh_shape[a]) for a in names)
+
+
+def _block_shape(spec: Spec, mesh, rules) -> Tuple[int, ...]:
+    """The shape of the block of `spec` one mesh entry holds: each dim
+    split over the product of the mesh axes its pspec entry names, rounded
+    up where it does not divide (GSPMD pads an uneven dim to a multiple of
+    its ways)."""
+    return tuple(-(-dim // _ways(entry, mesh.shape)) for dim, entry in
+                 zip(spec.shape, logical_to_pspec(spec.axes, rules)))
+
+
+def abstract_params(spec_tree, mesh, rules, dtype=torch.float32):
+    """`meta` tensors of each leaf's per-entry block shape, in the spec
+    tree's structure: the dry run's stand-ins (no allocation)."""
+    return tree_map(lambda s: torch.empty(_block_shape(s, mesh, rules),
+                                          dtype=dtype, device="meta"),
+                    spec_tree)
+
+
 def param_count(spec_tree) -> int:
     return int(sum(math.prod(s.shape) for s in tree_leaves(spec_tree)))
+
+
+def param_bytes(spec_tree, bytes_per_el: int = 4) -> int:
+    return param_count(spec_tree) * bytes_per_el

@@ -55,15 +55,16 @@ def mamba_spec(cfg: ModelConfig):
     di, H, _ = mamba_heads(cfg)
     N = s.state_dim
     return {
-        "w_in": Spec((d, 2 * di)),                 # x path + gate
-        "conv": Spec((s.conv_width, di), "normal", 1.0),
-        "w_bc": Spec((di, 2 * N)),
-        "w_dt": Spec((di, H)),
-        "dt_bias": Spec((H,), "zeros"),
-        "A_log": Spec((H,), "zeros"),              # A = -exp(A_log)
-        "D": Spec((H,), "ones"),
-        "w_out": Spec((di, d), scale=1.0 / math.sqrt(2 * cfg.num_layers)),
-        "out_norm": Spec((di,), "ones"),
+        "w_in": Spec((d, 2 * di), ("fsdp", "mlp")),        # x path + gate
+        "conv": Spec((s.conv_width, di), (None, "mlp"), "normal", 1.0),
+        "w_bc": Spec((di, 2 * N), ("mlp", None)),
+        "w_dt": Spec((di, H), ("mlp", None)),
+        "dt_bias": Spec((H,), (None,), "zeros"),
+        "A_log": Spec((H,), (None,), "zeros"),             # A = -exp(A_log)
+        "D": Spec((H,), (None,), "ones"),
+        "w_out": Spec((di, d), ("mlp", "fsdp"),
+                      scale=1.0 / math.sqrt(2 * cfg.num_layers)),
+        "out_norm": Spec((di,), (None,), "ones"),
     }
 
 

@@ -15,10 +15,18 @@ ignores the position. A MoE block replaces the MLP with `models/moe.py`'s
 dense dispatch and sums its load-balance loss over the layers into `aux`;
 an encoder (hubert) attends without a causal mask and without RoPE and,
 like any config with `embedding_frontend`, takes float frame embeddings
-(B, S, d_model) for tokens. Expert parallelism (`moe_impl="ep"`) and
-tensor / expert padding wait for distribution's model half (ROADMAP.md
-queue 1 item 9b;
-`check_ported`).
+(B, S, d_model) for tokens.
+
+Distribution's model half, as in the reference: `build_spec(ep=, tp=)`
+pads the experts to a multiple of `ep` and the query heads per KV group
+for `tp`; with a `mesh` (`launch.mesh.FleetMesh`), `moe_impl="ep"` runs
+each MoE block expert-parallel (`moe.apply_moe_ep`) and `ssm_impl=
+"seqpar"` each mLSTM block sequence-parallel over the model axis
+(`xlstm.apply_mlstm_block_seqpar`, in the forward and the prefill);
+without a mesh both run the single-device paths, as the reference's do.
+`ShardCtx(mesh, rules)` stands where the reference constrains shardings:
+one controller has no partitioner to hint, so it checks that every
+logical axis it is given maps to axes the mesh has and changes no value.
 
 `kernel_impl` ("auto" or "ref") is handed to every kernel op of a call:
 "ref" runs the plain versions on any device (the card's kernel-vs-plain
@@ -39,19 +47,19 @@ from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.param import Spec, tree_map
 
 
-def check_ported(*, ep: int = 1, tp: int = 1, moe_impl: str = "dense"):
-    """Raise NotImplementedError for what the port does not have yet:
-    expert parallelism and the tensor / expert padding of a sharded
-    model, all of distribution."""
-    missing = [what for what, absent in [
-        (f"moe_impl={moe_impl!r}", moe_impl != "dense"),
-        (f"expert padding (ep={ep})", ep != 1),
-        (f"tensor-parallel head padding (tp={tp})", tp != 1),
-    ] if absent]
-    if missing:
-        raise NotImplementedError(
-            f"{', '.join(missing)} not ported yet (ROADMAP.md queue 1 "
-            f"item 9b, distribution's model half)")
+MOE_IMPLS = ("dense", "ep")
+SSM_IMPLS = ("gspmd", "seqpar")
+
+
+def check_ported(*, moe_impl: str = "dense", ssm_impl: str = "gspmd"):
+    """Raise ValueError for an implementation name that neither package
+    knows."""
+    if moe_impl not in MOE_IMPLS:
+        raise ValueError(f"unknown moe_impl {moe_impl!r}; use one of "
+                         f"{MOE_IMPLS}")
+    if ssm_impl not in SSM_IMPLS:
+        raise ValueError(f"unknown ssm_impl {ssm_impl!r}; use one of "
+                         f"{SSM_IMPLS}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,46 +98,48 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
 # Specs
 # ---------------------------------------------------------------------------
 def _stack_spec(spec_tree, count: int):
-    return tree_map(lambda s: Spec((count,) + s.shape, s.init, s.scale),
-                    spec_tree)
+    return tree_map(lambda s: Spec((count,) + s.shape, ("layers",) + s.axes,
+                                   s.init, s.scale), spec_tree)
 
 
-def _block_spec(cfg: ModelConfig):
+def _block_spec(cfg: ModelConfig, ep: int = 1, tp: int = 1):
     spec = {
         "ln1": L.norm_spec(cfg),
-        "attn": L.attention_spec(cfg),
+        "attn": L.attention_spec(cfg, tp),
         "ln2": L.norm_spec(cfg),
     }
     if cfg.family == MOE:
-        spec["moe"] = moe_lib.moe_spec(cfg)
+        spec["moe"] = moe_lib.moe_spec(cfg, ep)
     else:
         spec["mlp"] = L.mlp_spec(cfg)
     if cfg.family == HYBRID:
         spec["mamba"] = ssm_lib.mamba_spec(cfg)
-        spec["mix_a"] = Spec((cfg.d_model,), "ones")
-        spec["mix_s"] = Spec((cfg.d_model,), "ones")
+        spec["mix_a"] = Spec((cfg.d_model,), (None,), "ones")
+        spec["mix_s"] = Spec((cfg.d_model,), (None,), "ones")
     return spec
 
 
 def build_spec(cfg: ModelConfig, *, ep: int = 1, tp: int = 1):
-    """Full parameter spec tree of an architecture (`ep` and `tp` other
-    than 1 raise until distribution is ported)."""
-    check_ported(ep=ep, tp=tp)
+    """Full parameter spec tree of an architecture. `ep` pads MoE expert
+    counts to the EP divisor; `tp` pads GQA head groups to the TP divisor
+    (`layers.padded_heads`)."""
     spec = {"embed": L.embedding_spec(cfg),
             "final_norm": L.norm_spec(cfg)}
     if cfg.meta_tokens:
-        spec["meta"] = Spec((cfg.meta_tokens, cfg.d_model), "embed")
-    spec["segments"] = [_stack_spec(_segment_spec(cfg, seg.kind), seg.count)
-                        for seg in layer_plan(cfg)]
+        spec["meta"] = Spec((cfg.meta_tokens, cfg.d_model), (None, "fsdp"),
+                            "embed")
+    spec["segments"] = [
+        _stack_spec(_segment_spec(cfg, seg.kind, ep, tp), seg.count)
+        for seg in layer_plan(cfg)]
     return spec
 
 
-def _segment_spec(cfg: ModelConfig, kind: str):
+def _segment_spec(cfg: ModelConfig, kind: str, ep: int = 1, tp: int = 1):
     if kind == "mlstm":
         return xlstm_lib.mlstm_block_spec(cfg)
     if kind == "slstm":
         return xlstm_lib.slstm_block_spec(cfg)
-    return _block_spec(cfg)
+    return _block_spec(cfg, ep, tp)
 
 
 def cache_spec(cfg: ModelConfig, batch: int, cap: int):
@@ -152,17 +162,19 @@ def cache_spec(cfg: ModelConfig, batch: int, cap: int):
             segs.append(_recurrent_cache_spec(cfg, seg.kind, n, batch))
             continue
         kv_cap = cap if w == 0 else min(w, cap)
-        c = {"k": Spec((n, batch, kv_cap, K, hd), "zeros"),
-             "v": Spec((n, batch, kv_cap, K, hd), "zeros")}
+        kv_axes = ("layers", "batch", None, "kv_heads", None)
+        c = {"k": Spec((n, batch, kv_cap, K, hd), kv_axes, "zeros"),
+             "v": Spec((n, batch, kv_cap, K, hd), kv_axes, "zeros")}
         if w > 0 and meta:
-            c["mk"] = Spec((n, batch, meta, K, hd), "zeros")
-            c["mv"] = Spec((n, batch, meta, K, hd), "zeros")
+            c["mk"] = Spec((n, batch, meta, K, hd), kv_axes, "zeros")
+            c["mv"] = Spec((n, batch, meta, K, hd), kv_axes, "zeros")
         if cfg.family == HYBRID:
             di, Hs, P = ssm_lib.mamba_heads(cfg)
             c["mamba"] = {
                 "conv": Spec((n, batch, cfg.ssm.conv_width - 1, di),
-                             "zeros"),
+                             ("layers", "batch", None, "mlp"), "zeros"),
                 "state": Spec((n, batch, Hs, P, cfg.ssm.state_dim),
+                              ("layers", "batch", None, "mlp", None),
                               "zeros")}
         segs.append(c)
     return {"segments": segs}
@@ -172,17 +184,21 @@ def _recurrent_cache_spec(cfg: ModelConfig, kind: str, n: int, batch: int):
     W = cfg.ssm.conv_width
     if kind == "mlstm":
         di, H, P = xlstm_lib.mlstm_heads(cfg)
-        return {"C": Spec((n, batch, H, P, P), "zeros"),
-                "n": Spec((n, batch, H, P), "zeros"),
-                "m": Spec((n, batch, H), "neg_inf"),
-                "conv": Spec((n, batch, W - 1, di), "zeros")}
+        lbh = ("layers", "batch", "heads")
+        return {"C": Spec((n, batch, H, P, P), lbh + (None, None), "zeros"),
+                "n": Spec((n, batch, H, P), lbh + (None,), "zeros"),
+                "m": Spec((n, batch, H), lbh, "neg_inf"),
+                "conv": Spec((n, batch, W - 1, di),
+                             ("layers", "batch", None, "mlp"), "zeros")}
     H = cfg.num_heads
     P = cfg.d_model // H
-    return {"h": Spec((n, batch, H, P), "zeros"),
-            "c": Spec((n, batch, H, P), "zeros"),
-            "n": Spec((n, batch, H, P), "zeros"),
-            "m": Spec((n, batch, H, P), "neg_inf"),
-            "conv": Spec((n, batch, W - 1, cfg.d_model), "zeros")}
+    lbh = ("layers", "batch", "heads", None)
+    return {"h": Spec((n, batch, H, P), lbh, "zeros"),
+            "c": Spec((n, batch, H, P), lbh, "zeros"),
+            "n": Spec((n, batch, H, P), lbh, "zeros"),
+            "m": Spec((n, batch, H, P), lbh, "neg_inf"),
+            "conv": Spec((n, batch, W - 1, cfg.d_model),
+                         ("layers", "batch", None, None), "zeros")}
 
 
 # ---------------------------------------------------------------------------
@@ -226,18 +242,59 @@ def _mix(cfg: ModelConfig, p, x, attn_out, ssm_out):
     return x + 0.5 * (na + ns)
 
 
-def _ffn(cfg: ModelConfig, p, h2, capacity_factor: float):
+# ---------------------------------------------------------------------------
+# Sharding context
+# ---------------------------------------------------------------------------
+class ShardCtx:
+    """Where the reference applies `with_sharding_constraint` from logical
+    axis names. One controller has no partitioner to hint: a call checks
+    that each named axis maps (through `rules`) to axes the mesh has and
+    returns `x` unchanged; a None mesh makes it a no-op."""
+
+    def __init__(self, mesh=None, rules=None):
+        self.mesh = mesh
+        self.rules = rules or {}
+
+    def __call__(self, x, *axes):
+        if self.mesh is None:
+            return x
+        for name in axes:
+            entry = self.rules.get(name) if name is not None else None
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                if a is not None and a not in self.mesh.shape:
+                    raise ValueError(f"logical axis {name!r} maps to {a!r}, "
+                                     f"not an axis of the mesh "
+                                     f"{dict(self.mesh.shape)}")
+        return x
+
+
+NULL_CTX = ShardCtx()
+
+
+def _batch_axes(mesh):
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def _ffn(cfg: ModelConfig, p, h2, capacity_factor: float,
+         moe_impl: str = "dense", mesh=None):
     """The block's second half on the normed residual: the MLP, or (MoE)
-    the dense expert dispatch. Returns (y, aux)."""
-    if cfg.family == MOE:
-        return moe_lib.apply_moe_dense(cfg, p["moe"], h2,
-                                       capacity_factor=capacity_factor)
-    return L.apply_mlp(cfg, p["mlp"], h2), None
+    the dense expert dispatch, or with `moe_impl="ep"` and a mesh the
+    expert-parallel one. Returns (y, aux)."""
+    if cfg.family != MOE:
+        return L.apply_mlp(cfg, p["mlp"], h2), None
+    if moe_impl == "ep" and mesh is not None:
+        return moe_lib.apply_moe_ep(
+            cfg, p["moe"], h2, mesh, capacity_factor=capacity_factor,
+            batch_axes=_batch_axes(mesh),
+            fsdp_axis="data" if "data" in mesh.shape else None)
+    return moe_lib.apply_moe_dense(cfg, p["moe"], h2,
+                                   capacity_factor=capacity_factor)
 
 
 def _block_forward(cfg: ModelConfig, p, x, positions, *, window: int,
                    collect_cache: bool, kernel_impl: str,
-                   capacity_factor: float):
+                   capacity_factor: float, moe_impl: str = "dense",
+                   mesh=None, ctx: ShardCtx = NULL_CTX):
     h = L.apply_norm(cfg, p["ln1"], x)
     if window > 0:
         attn_out, (k, v) = L.attention_windowed(
@@ -247,6 +304,7 @@ def _block_forward(cfg: ModelConfig, p, x, positions, *, window: int,
         attn_out, (k, v) = L.attention_full(cfg, p["attn"], h, positions,
                                             causal=cfg.causal,
                                             kernel_impl=kernel_impl)
+    attn_out = ctx(attn_out, "batch", None, None)
     cache = {"k": k, "v": v} if collect_cache else None
     ssm_out = None
     if cfg.family == HYBRID:
@@ -258,12 +316,14 @@ def _block_forward(cfg: ModelConfig, p, x, positions, *, window: int,
         else:
             ssm_out = res
     x = _mix(cfg, p, x, attn_out, ssm_out)
-    y, aux = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x), capacity_factor)
-    return x + y, cache, aux
+    y, aux = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x), capacity_factor,
+                  moe_impl, mesh)
+    return ctx(x + y, "batch", None, None), cache, aux
 
 
 def _block_decode(cfg: ModelConfig, p, x, cache, pos, *, window: int,
-                  kernel_impl: str, capacity_factor: float):
+                  kernel_impl: str, capacity_factor: float,
+                  moe_impl: str = "dense", mesh=None):
     h = L.apply_norm(cfg, p["ln1"], x)
     attn_out, _ = L.attention_decode(cfg, p["attn"], h, cache, pos,
                                      window=window, meta=cfg.meta_tokens,
@@ -273,7 +333,8 @@ def _block_decode(cfg: ModelConfig, p, x, cache, pos, *, window: int,
         ssm_out, _ = ssm_lib.apply_mamba_step(cfg, p["mamba"], h,
                                               cache["mamba"])
     x = _mix(cfg, p, x, attn_out, ssm_out)
-    y, _ = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x), capacity_factor)
+    y, _ = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x), capacity_factor,
+                moe_impl, mesh)
     return x + y
 
 
@@ -290,10 +351,14 @@ def _embed(cfg: ModelConfig, params, inputs, compute_dtype):
 
 def forward(cfg: ModelConfig, params, inputs, *,
             compute_dtype=torch.bfloat16, collect_cache: bool = False,
-            kernel_impl: str = "auto", capacity_factor: float = 1.25):
+            kernel_impl: str = "auto", capacity_factor: float = 1.25,
+            ctx: ShardCtx = NULL_CTX, moe_impl: str = "dense", mesh=None,
+            ssm_impl: str = "gspmd"):
     """Full-sequence forward. inputs: int tokens (B,S), or float embeds
     (B,S,D) when cfg.embedding_frontend. Meta tokens are prepended
-    internally and stripped from the logits.
+    internally and stripped from the logits. With a `mesh`, `moe_impl=
+    "ep"` runs the MoE blocks expert-parallel and `ssm_impl="seqpar"` the
+    mLSTM blocks sequence-parallel.
     Returns (logits (B,S,V), aux, caches|None); aux is the MoE
     load-balance loss summed over the layers (0 for the other families),
     caches (attention families only: the xLSTM prefill builds
@@ -308,12 +373,18 @@ def forward(cfg: ModelConfig, params, inputs, *,
             B, meta, cfg.d_model), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
+    x = ctx(x, "batch", "seq", None)
+    seqpar = ssm_impl == "seqpar" and mesh is not None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for seg, segp in zip(layer_plan(cfg), params["segments"]):
         layer_caches = []
         for lp in _layers(segp, seg.count):
-            if seg.kind == "mlstm":
+            if seg.kind == "mlstm" and seqpar:
+                x, c = xlstm_lib.apply_mlstm_block_seqpar(
+                    cfg, lp, x, mesh, batch_axes=_batch_axes(mesh),
+                    kernel_impl=kernel_impl), None
+            elif seg.kind == "mlstm":
                 x, c = xlstm_lib.apply_mlstm_block(cfg, lp, x,
                                                    kernel_impl=kernel_impl)
             elif seg.kind == "slstm":
@@ -322,7 +393,8 @@ def forward(cfg: ModelConfig, params, inputs, *,
                 x, c, aux_l = _block_forward(
                     cfg, lp, x, positions, window=seg.window,
                     collect_cache=collect_cache, kernel_impl=kernel_impl,
-                    capacity_factor=capacity_factor)
+                    capacity_factor=capacity_factor, moe_impl=moe_impl,
+                    mesh=mesh, ctx=ctx)
                 if aux_l is not None:
                     aux = aux + aux_l
             layer_caches.append(c)
@@ -330,6 +402,7 @@ def forward(cfg: ModelConfig, params, inputs, *,
             caches.append(_stack_layers(layer_caches))
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(cfg, params["embed"], x[:, meta:])
+    logits = ctx(logits, "batch", None, "vocab")
     return logits, aux, (caches if collect_cache else None)
 
 
@@ -343,7 +416,9 @@ def _stack_layers(trees):
 
 def prefill(cfg: ModelConfig, params, inputs, cap: int, *,
             compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
-            kernel_impl: str = "auto", capacity_factor: float = 1.25):
+            kernel_impl: str = "auto", capacity_factor: float = 1.25,
+            ctx: ShardCtx = NULL_CTX, moe_impl: str = "dense", mesh=None,
+            ssm_impl: str = "gspmd"):
     """Run the full prompt and build a decode cache of static capacity
     `cap` (absolute positions, meta tokens included). K/V go to the cache
     in `cache_dtype`; the Mamba cache keeps its conv rows in the compute
@@ -353,12 +428,14 @@ def prefill(cfg: ModelConfig, params, inputs, cap: int, *,
     if cfg.family == SSM:
         return _prefill_recurrent(cfg, params, inputs,
                                   compute_dtype=compute_dtype,
-                                  kernel_impl=kernel_impl)
+                                  kernel_impl=kernel_impl, mesh=mesh,
+                                  ssm_impl=ssm_impl)
     logits, _, kv_caches = forward(cfg, params, inputs,
                                    compute_dtype=compute_dtype,
                                    collect_cache=True,
                                    kernel_impl=kernel_impl,
-                                   capacity_factor=capacity_factor)
+                                   capacity_factor=capacity_factor, ctx=ctx,
+                                   moe_impl=moe_impl, mesh=mesh)
     S_tot = inputs.shape[1] + cfg.meta_tokens
     segs = []
     for seg, kv in zip(layer_plan(cfg), kv_caches):
@@ -398,17 +475,25 @@ def _ring_from_full(k, v, w: int, meta: int, S_tot: int, cache_dtype):
 
 
 def _prefill_recurrent(cfg: ModelConfig, params, inputs, *, compute_dtype,
-                       kernel_impl: str):
+                       kernel_impl: str, mesh=None, ssm_impl: str = "gspmd"):
     """xLSTM prefill: the full prompt through every block, each returning
     its final recurrent state and conv rows (mLSTM state from `ops.mlstm`,
-    fp32; conv rows in the compute dtype), stacked per segment. Returns
-    (last_logits (B,V), cache_tree, next_pos = S)."""
+    fp32; conv rows in the compute dtype), stacked per segment; with
+    `ssm_impl="seqpar"` and a mesh the mLSTM blocks run sequence-parallel
+    over its model axis. Returns (last_logits (B,V), cache_tree,
+    next_pos = S)."""
     x = L.embed_tokens(params["embed"], inputs, compute_dtype)
+    seqpar = ssm_impl == "seqpar" and mesh is not None
     segs = []
     for seg, segp in zip(layer_plan(cfg), params["segments"]):
         states = []
         for i in range(seg.count):
-            if seg.kind == "mlstm":
+            if seg.kind == "mlstm" and seqpar:
+                x, st = xlstm_lib.apply_mlstm_block_seqpar(
+                    cfg, _layer(segp, i), x, mesh,
+                    batch_axes=_batch_axes(mesh), want_state=True,
+                    kernel_impl=kernel_impl)
+            elif seg.kind == "mlstm":
                 x, st = xlstm_lib.mlstm_block_states(
                     cfg, _layer(segp, i), x, kernel_impl=kernel_impl)
             else:
@@ -422,18 +507,21 @@ def _prefill_recurrent(cfg: ModelConfig, params, inputs, *, compute_dtype,
 
 def decode_step(cfg: ModelConfig, params, token, cache, pos, *,
                 compute_dtype=torch.bfloat16, kernel_impl: str = "auto",
-                capacity_factor: float = 1.25):
+                capacity_factor: float = 1.25, ctx: ShardCtx = NULL_CTX,
+                moe_impl: str = "dense", mesh=None):
     """One-token decode. token: (B,1) int; pos: absolute position of the
     token (meta tokens included; the xLSTM family does not read it), an
     int for the batch or a (B,) int tensor on the device, one per lane:
     each lane then takes its own RoPE position, writes its K/V row at its
     own position and attends to its own prefix (`layers.decode_attend`).
     The cache is updated in place. A MoE block routes the B tokens
-    together, with the reference's capacity drops.
+    together, with the reference's capacity drops (expert-parallel with
+    `moe_impl="ep"` and a mesh).
     Returns (logits (B,1,V), cache)."""
     if cfg.embedding_frontend:
         raise ValueError("encoder-only arch has no decode step")
-    x = L.embed_tokens(params["embed"], token, compute_dtype)
+    x = ctx(L.embed_tokens(params["embed"], token, compute_dtype),
+            "batch", None, None)
     for seg, segp, segc in zip(layer_plan(cfg), params["segments"],
                                cache["segments"]):
         for i in range(seg.count):
@@ -445,7 +533,8 @@ def decode_step(cfg: ModelConfig, params, token, cache, pos, *,
             else:
                 x = _block_decode(cfg, lp, x, lc, pos, window=seg.window,
                                   kernel_impl=kernel_impl,
-                                  capacity_factor=capacity_factor)
+                                  capacity_factor=capacity_factor,
+                                  moe_impl=moe_impl, mesh=mesh)
     x = L.apply_norm(cfg, params["final_norm"], x)
-    logits = L.unembed(cfg, params["embed"], x)
+    logits = ctx(L.unembed(cfg, params["embed"], x), "batch", None, "vocab")
     return logits, cache

@@ -16,10 +16,20 @@ length. (The JAX `mlstm_chunked` decays its final state over the padded
 steps of a ragged last chunk; ROADMAP.md, queue 3.) Decode updates the
 cache IN PLACE (the JAX version returns new arrays): the serving loop
 decodes contiguous slots on a view of its pool and keeps no returned
-cache. The sequence-parallel mLSTM of the JAX module
-(`mlstm_state_summary`, `combine_mlstm_states`,
-`apply_mlstm_block_seqpar`) arrives with distribution's model half
-(ROADMAP.md queue 1 item 9b).
+cache.
+
+The sequence-parallel mLSTM (`apply_mlstm_block_seqpar`) runs the
+reference's `shard_map` body once per entry of the mesh's model axis, on
+that entry's device: the token-local projections and conv on its
+sequence shard (with the left neighbour's last W-1 raw tokens as the
+conv's halo), a summary pass (`mlstm_state_summary`: the state its shard
+reaches from zero, through `ops.mlstm`, the kernel on the card), the
+combine of the summaries before it (`combine_mlstm_states`), and the
+output pass seeded with that prefix state (`ops.mlstm(init_state=...)`,
+the kernel again). The port's summary is the token recurrence's state at
+every shard length; the reference's decays over the padding of a ragged
+last chunk (ROADMAP.md, defects of the reference), so at ragged shards
+the port's seqpar equals the port's unsharded block, not the reference's.
 
 Stabilisation follows the paper: running log-max state m with
   m_t = max(logsig(f) + m_{t-1}, i_t)
@@ -36,7 +46,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_norm
-from repro_torch.models.param import Spec
+from repro_torch.models.param import Spec, tree_map
 from repro_torch.models.ssm import _causal_conv
 
 F32 = torch.float32
@@ -112,7 +122,8 @@ def slstm_scan(x_gates, r_weights, H: int, init_state=None):
 # Block specs
 # ---------------------------------------------------------------------------
 def _ln_spec(d: int):
-    return {"scale": Spec((d,), "ones"), "bias": Spec((d,), "zeros")}
+    return {"scale": Spec((d,), (None,), "ones"),
+            "bias": Spec((d,), (None,), "zeros")}
 
 
 def mlstm_block_spec(cfg: ModelConfig):
@@ -120,15 +131,16 @@ def mlstm_block_spec(cfg: ModelConfig):
     di, H, P = mlstm_heads(cfg)
     return {
         "norm": _ln_spec(d),
-        "w_up": Spec((d, 2 * di)),
-        "conv": Spec((cfg.ssm.conv_width, di)),
-        "wq": Spec((di, H, P)),
-        "wk": Spec((di, H, P)),
-        "wv": Spec((di, H, P)),
-        "w_if": Spec((di, 2, H)),
-        "b_if": Spec((2, H), "zeros"),
-        "gn": Spec((di,), "ones"),
-        "w_down": Spec((di, d), scale=1.0 / math.sqrt(2 * cfg.num_layers)),
+        "w_up": Spec((d, 2 * di), ("fsdp", "mlp")),
+        "conv": Spec((cfg.ssm.conv_width, di), (None, "mlp")),
+        "wq": Spec((di, H, P), ("mlp", "heads", None)),
+        "wk": Spec((di, H, P), ("mlp", "heads", None)),
+        "wv": Spec((di, H, P), ("mlp", "heads", None)),
+        "w_if": Spec((di, 2, H), ("mlp", None, None)),
+        "b_if": Spec((2, H), (None, None), "zeros"),
+        "gn": Spec((di,), (None,), "ones"),
+        "w_down": Spec((di, d), ("mlp", "fsdp"),
+                       scale=1.0 / math.sqrt(2 * cfg.num_layers)),
     }
 
 
@@ -140,14 +152,15 @@ def slstm_block_spec(cfg: ModelConfig):
     ff = ((ff + 63) // 64) * 64
     return {
         "norm": _ln_spec(d),
-        "conv": Spec((cfg.ssm.conv_width, d)),
-        "w_gates": Spec((d, 4, H, P)),
-        "r_gates": Spec((4, H, P, P), scale=0.5),
-        "b_gates": Spec((4, H, P), "zeros"),
-        "gn": Spec((d,), "ones"),
-        "ffn": {"w_gate": Spec((d, ff)),
-                "w_up": Spec((d, ff)),
-                "w_down": Spec((ff, d),
+        "conv": Spec((cfg.ssm.conv_width, d), (None, None)),
+        "w_gates": Spec((d, 4, H, P), (None, None, "heads", None)),
+        "r_gates": Spec((4, H, P, P), (None, "heads", None, None),
+                        scale=0.5),
+        "b_gates": Spec((4, H, P), (None, "heads", None), "zeros"),
+        "gn": Spec((d,), (None,), "ones"),
+        "ffn": {"w_gate": Spec((d, ff), ("fsdp", "mlp")),
+                "w_up": Spec((d, ff), ("fsdp", "mlp")),
+                "w_down": Spec((ff, d), ("mlp", "fsdp"),
                                scale=1.0 / math.sqrt(2 * cfg.num_layers))},
     }
 
@@ -163,14 +176,19 @@ def _group_norm(p, h, dt):
             * p["gn"].to(F32)).to(dt)
 
 
-def _mlstm_in(cfg: ModelConfig, p, x, conv_cache=None):
-    """Pre-norm, up-projection, causal conv and the q, k, v and gate
-    projections of an mLSTM block. Returns (q, k, v (B,S,H,P), ig, fg
-    (B,S,H) views of one projection, z (B,S,di), the conv's new cache:
-    its last W-1 raw inputs)."""
-    dt = x.dtype
+def _mlstm_up(cfg: ModelConfig, p, x):
+    """Pre-norm and up-projection of an mLSTM block: (the conv's raw input
+    ux_raw, the output gate's z), each (B,S,di)."""
     xin = apply_norm(cfg, p["norm"], x)
-    ux_raw, z = (xin @ p["w_up"].to(dt)).chunk(2, dim=-1)
+    return (xin @ p["w_up"].to(x.dtype)).chunk(2, dim=-1)
+
+
+def _mlstm_proj(p, ux_raw, conv_cache=None):
+    """The causal conv (its window's first W-1 rows from `conv_cache`,
+    zeros when None) and the q, k, v and gate projections. Returns (q, k,
+    v (B,S,H,P), ig, fg (B,S,H) views of one projection, the conv's new
+    cache: its last W-1 raw inputs)."""
+    dt = ux_raw.dtype
     ux, new_conv = _causal_conv(ux_raw, p["conv"], cache=conv_cache)
     ux = F.silu(ux)
     q = torch.einsum("bse,ehp->bshp", ux, p["wq"].to(dt))
@@ -178,7 +196,17 @@ def _mlstm_in(cfg: ModelConfig, p, x, conv_cache=None):
     v = torch.einsum("bse,ehp->bshp", ux, p["wv"].to(dt))
     gates = torch.einsum("bse,egh->bsgh", ux, p["w_if"].to(dt)) \
         + p["b_if"].to(dt)
-    return q, k, v, gates[:, :, 0], gates[:, :, 1], z, new_conv
+    return q, k, v, gates[:, :, 0], gates[:, :, 1], new_conv
+
+
+def _mlstm_in(cfg: ModelConfig, p, x, conv_cache=None):
+    """Pre-norm, up-projection, causal conv and the q, k, v and gate
+    projections of an mLSTM block. Returns (q, k, v (B,S,H,P), ig, fg
+    (B,S,H) views of one projection, z (B,S,di), the conv's new cache:
+    its last W-1 raw inputs)."""
+    ux_raw, z = _mlstm_up(cfg, p, x)
+    q, k, v, ig, fg, new_conv = _mlstm_proj(p, ux_raw, conv_cache)
+    return q, k, v, ig, fg, z, new_conv
 
 
 def _mlstm_out(p, x, h, z):
@@ -220,6 +248,115 @@ def mlstm_block_states(cfg: ModelConfig, p, x, *, chunk: int = 64,
     h, (C, n, m) = ops.mlstm(q, k, v, ig, fg, chunk=chunk, return_state=True,
                              impl=kernel_impl)
     return _mlstm_out(p, x, h, z), {"C": C, "n": n, "m": m, "conv": conv}
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel mLSTM block
+# ---------------------------------------------------------------------------
+def mlstm_state_summary(k, v, igate, fgate, *, chunk: int = 64,
+                        impl: str = "auto"):
+    """State-only pass: the (C, n, m) state a zero-initialised mLSTM
+    reaches after consuming the sequence, through `ops.mlstm(...,
+    return_state=True)` (the kernel on the card; any q gives the same
+    state, k stands in for it), and the total log-decay b_total (B,H), the
+    sum of log sigmoid(f) over the steps. The per-shard summary of the
+    sequence-parallel form. k, v: (B,S,H,P); gates: (B,S,H). Returns
+    ((C, n, m), b_total), fp32."""
+    _, state = ops.mlstm(k, k, v, igate, fgate, chunk=chunk,
+                         return_state=True, impl=impl)
+    return state, F.logsigmoid(fgate.to(F32)).sum(dim=1)
+
+
+def combine_mlstm_states(s1, b2, s2):
+    """Sequential combine: state s1, then a segment with total decay b2
+    whose zero-initialised state is s2. All in the paper's log-max frame."""
+    C1, n1, m1 = s1
+    C2, n2, m2 = s2
+    m_new = torch.maximum(b2 + m1, m2)
+    m_new = torch.clamp(m_new, min=-1e30)        # both -inf: stay finite
+    w1 = torch.exp(b2 + m1 - m_new)
+    w2 = torch.exp(m2 - m_new)
+    C = w1[..., None, None] * C1 + w2[..., None, None] * C2
+    n = w1[..., None] * n1 + w2[..., None] * n2
+    return (C, n, m_new)
+
+
+def apply_mlstm_block_seqpar(cfg: ModelConfig, p, x, mesh, *,
+                             seq_axis: str = "model",
+                             batch_axes=("data",), chunk: int = 64,
+                             want_state: bool = False,
+                             kernel_impl: str = "auto"):
+    """The mLSTM block sequence-parallel over `seq_axis` of `mesh`.
+
+    x: (B,S,D) on its home device; the batch splits over `batch_axes`
+    (one data row per position over them), the sequence into M equal
+    shards over the seq axis. Per entry, on its device: the token-local
+    norm, up-projection and gate projections of its shard, the causal
+    conv with the left neighbour's last W-1 raw tokens as halo (zeros on
+    entry 0), and the summary pass. The summaries are gathered and each
+    entry takes the combine of the ones before it, in order from the zero
+    state (a running combine passed from entry to entry: the reference's
+    all_gather and masked scan give each entry this same sequence of
+    combines). The output pass runs from that prefix
+    (`ops.mlstm(init_state=...)`). `kernel_impl` goes to both passes.
+
+    Returns out (B,S,D) on x's device, and with `want_state` also the
+    full-sequence decode cache {"C","n","m","conv"} from the last entry:
+    the state its seeded pass ends in, and its last W-1 raw tokens."""
+    M = mesh.shape[seq_axis]
+    W = cfg.ssm.conv_width
+    B, S, D = x.shape
+    rows = list(mesh.positions(tuple(batch_axes)))
+    if B % len(rows) or S % M:
+        raise ValueError(f"x {tuple(x.shape)} does not split into "
+                         f"{len(rows)} data rows and {M} sequence shards")
+    B_loc, S_loc = B // len(rows), S // M
+    _, H, P = mlstm_heads(cfg)
+    home = x.device
+    outs, caches = [], []
+    for r, where in enumerate(rows):
+        devs = [mesh.device_at(**where, **{seq_axis: j}) for j in range(M)]
+        xs = [x[r * B_loc:(r + 1) * B_loc, j * S_loc:(j + 1) * S_loc].to(d)
+              for j, d in enumerate(devs)]
+        ps = [tree_map(lambda t, d=d: t.to(d), p) for d in devs]
+        ups = [_mlstm_up(cfg, pj, xj) for pj, xj in zip(ps, xs)]
+        proj, summaries = [], []
+        for j, dev in enumerate(devs):
+            ux_raw = ups[j][0]
+            # ppermute: the left neighbour's last W-1 raw tokens
+            halo = (ux_raw.new_zeros((B_loc, W - 1, ux_raw.shape[-1]))
+                    if j == 0 else ups[j - 1][0][:, -(W - 1):].to(dev))
+            q, k, v, ig, fg, _ = _mlstm_proj(ps[j], ux_raw, halo)
+            proj.append((q, k, v, ig, fg))
+            summaries.append(mlstm_state_summary(k, v, ig, fg, chunk=chunk,
+                                                 impl=kernel_impl))
+        prefix = (torch.zeros((B_loc, H, P, P), dtype=F32, device=devs[0]),
+                  torch.zeros((B_loc, H, P), dtype=F32, device=devs[0]),
+                  torch.full((B_loc, H), -math.inf, dtype=F32,
+                             device=devs[0]))
+        row_out = []
+        for j, dev in enumerate(devs):
+            if j:
+                (C, n, m), btot = summaries[j - 1]
+                prefix = combine_mlstm_states(
+                    tuple(t.to(dev) for t in prefix), btot.to(dev),
+                    tuple(t.to(dev) for t in (C, n, m)))
+            last = want_state and j == M - 1
+            res = ops.mlstm(*proj[j], chunk=chunk, init_state=prefix,
+                            return_state=last, impl=kernel_impl)
+            h = res[0] if last else res
+            row_out.append(_mlstm_out(ps[j], xs[j], h, ups[j][1]).to(home))
+            if last:
+                C, n, m = (t.to(home) for t in res[1])
+                caches.append({"C": C, "n": n, "m": m,
+                               "conv": ups[j][0][:, -(W - 1):].to(home)})
+        outs.append(torch.cat(row_out, dim=1))
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    if not want_state:
+        return out
+    cache = caches[0] if len(caches) == 1 else {
+        k: torch.cat([c[k] for c in caches]) for k in caches[0]}
+    return out, cache
 
 
 def _slstm_gates(cfg: ModelConfig, p, x, conv_cache=None):

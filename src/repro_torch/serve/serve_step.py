@@ -22,31 +22,38 @@ from repro_torch.models.model import Model
 from repro_torch.models.param import tree_leaves, tree_map
 
 
-def make_prefill_step(model: Model, cap: int, *,
-                      compute_dtype=torch.bfloat16):
+def make_prefill_step(model: Model, cap: int, *, mesh=None, rules=None,
+                      moe_impl: str = "dense", compute_dtype=torch.bfloat16,
+                      ssm_impl: str = "gspmd"):
     def prefill_step(params, inputs):
         last_logits, cache, pos = model.prefill(
-            params, inputs, cap, compute_dtype=compute_dtype)
+            params, inputs, cap, compute_dtype=compute_dtype, mesh=mesh,
+            rules=rules, moe_impl=moe_impl, ssm_impl=ssm_impl)
         tok = last_logits.to(torch.float32).argmax(dim=-1)
         return tok, cache, pos
 
     return prefill_step
 
 
-def make_decode_step(model: Model, *, compute_dtype=torch.bfloat16):
+def make_decode_step(model: Model, *, mesh=None, rules=None,
+                     moe_impl: str = "dense", compute_dtype=torch.bfloat16):
     def decode_step(params, token, cache, pos):
         logits, new_cache = model.decode(params, token, cache, pos,
-                                         compute_dtype=compute_dtype)
+                                         compute_dtype=compute_dtype,
+                                         mesh=mesh, rules=rules,
+                                         moe_impl=moe_impl)
         nxt = logits[:, -1].to(torch.float32).argmax(dim=-1)
         return nxt[:, None], new_cache
 
     return decode_step
 
 
-def make_encode_step(model: Model, *, compute_dtype=torch.bfloat16):
+def make_encode_step(model: Model, *, mesh=None, rules=None,
+                     compute_dtype=torch.bfloat16):
     """Encoder-only archs: the full-sequence forward, returning logits."""
     def encode_step(params, inputs):
-        logits, _ = model.apply(params, inputs, compute_dtype=compute_dtype)
+        logits, _ = model.apply(params, inputs, compute_dtype=compute_dtype,
+                                mesh=mesh, rules=rules)
         return logits
 
     return encode_step
@@ -201,7 +208,8 @@ def _fleet_block(cfg, lps, spans, sel, x, lc, ln, *, window):
     outs = []
     for lp, h, s, (_, a, b) in zip(lps, hs, sel, spans):
         xg = x[a:b]
-        attn_out = L._out_proj(o[a:b], lp["attn"]["wo"], xg.dtype)
+        attn_out = L._out_proj(L._mask_heads(cfg, o[a:b]),
+                               lp["attn"]["wo"], xg.dtype)
         ssm_out = None
         if cfg.family == HYBRID:
             mc, write_back = _lane_rows(lc["mamba"], s)

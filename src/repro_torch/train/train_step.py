@@ -51,8 +51,13 @@ def softmax_xent(cfg: ModelConfig, logits, labels):
     return ce, z
 
 
-def make_loss_fn(model: Model, tcfg: TrainConfig, *,
-                 distill_weight: float = 0.0):
+def make_loss_fn(model: Model, tcfg: TrainConfig, *, mesh=None, rules=None,
+                 moe_impl: str = "dense", distill_weight: float = 0.0,
+                 ssm_impl: str = "gspmd"):
+    """The loss of `params` on a batch. With a mesh, `moe_impl="ep"`
+    differentiates the expert-parallel MoE and `ssm_impl="seqpar"` the
+    sequence-parallel mLSTM (its two passes on the chunked plain form,
+    as every op of the train forward)."""
     check_train_config(tcfg)
     cfg = model.cfg
     compute_dtype = getattr(torch, tcfg.compute_dtype)
@@ -65,7 +70,9 @@ def make_loss_fn(model: Model, tcfg: TrainConfig, *,
                               if p.dtype == F32 else p, params)
         logits, aux = model.apply(params, batch["inputs"],
                                   compute_dtype=compute_dtype,
-                                  kernel_impl=AUTOGRAD)
+                                  kernel_impl=AUTOGRAD, mesh=mesh,
+                                  rules=rules, moe_impl=moe_impl,
+                                  ssm_impl=ssm_impl)
         if cfg.family == ENCODER or not cfg.causal:
             lab, lg = batch["labels"], logits
         else:
@@ -84,13 +91,16 @@ def make_loss_fn(model: Model, tcfg: TrainConfig, *,
     return loss_fn
 
 
-def make_train_step(model: Model, tcfg: TrainConfig, *,
-                    distill_weight: float = 0.0):
+def make_train_step(model: Model, tcfg: TrainConfig, *, mesh=None,
+                    rules=None, moe_impl: str = "dense",
+                    distill_weight: float = 0.0, ssm_impl: str = "gspmd"):
     """Returns train_step(state, batch) -> (state, metrics). state is
     {"params", "opt"}, updated in place and returned; batch holds
     {"inputs", "labels"[, "teacher_logits"]} tensors on the state's
     device. metrics: {"loss", "ce", "aux", "z", "grad_norm", "lr"}, 0-d."""
-    loss_fn = make_loss_fn(model, tcfg, distill_weight=distill_weight)
+    loss_fn = make_loss_fn(model, tcfg, mesh=mesh, rules=rules,
+                           moe_impl=moe_impl, distill_weight=distill_weight,
+                           ssm_impl=ssm_impl)
     value_and_grads = torch.func.grad_and_value(loss_fn, has_aux=True)
     k = tcfg.microbatches
 
@@ -120,8 +130,10 @@ def make_train_step(model: Model, tcfg: TrainConfig, *,
     return train_step
 
 
-def make_train_step_many(model: Model, tcfg: TrainConfig, *,
-                         distill_weight: float = 0.0):
+def make_train_step_many(model: Model, tcfg: TrainConfig, *, mesh=None,
+                         rules=None, moe_impl: str = "dense",
+                         distill_weight: float = 0.0,
+                         ssm_impl: str = "gspmd"):
     """Multi-step trainer over STACKED job states.
 
     Returns train_steps_many(states, batches, lanes=None) -> (states,
@@ -133,7 +145,9 @@ def make_train_step_many(model: Model, tcfg: TrainConfig, *,
     state j with its batches in order (the JAX version's vmap of a scan
     pins the same contract; a batched vmap here would round its GEMMs
     differently). Metrics: every step's, stacked as (lanes, steps)."""
-    step = make_train_step(model, tcfg, distill_weight=distill_weight)
+    step = make_train_step(model, tcfg, mesh=mesh, rules=rules,
+                           moe_impl=moe_impl, distill_weight=distill_weight,
+                           ssm_impl=ssm_impl)
 
     def train_steps_many(states, batches, lanes=None):
         n = next(iter(batches.values())).shape[0]

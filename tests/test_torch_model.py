@@ -207,9 +207,13 @@ def test_unported_configs_raise(change):
     """olmo smoke with one feature the port once refused, now ported: the
     MoE family (with a MoE config, d_ff 0), the GELU MLP, qk-norm. The
     forward logits and the MoE load-balance loss equal the JAX package's
-    on the same weights (fp32). What the port still lacks (expert
-    parallelism, tensor / expert padding) is refused with a pointer to
-    the ROADMAP's item 9."""
+    on the same weights (fp32). What the port once refused (expert
+    parallelism, tensor / head padding, ROADMAP item 9b) is taken now:
+    the model built at tp = 2 (4 heads divide it: nothing to pad) has the
+    same spec and logits, and with moe_impl="ep" on a (1, 2) CPU mesh at
+    a cf that drops nothing the logits equal the dense dispatch's (the
+    dense families run their MLP either way). Padded heads are held in
+    tests/test_torch_mesh_rules.py."""
     from repro.configs.base import MoEConfig as JMoEConfig
     from repro_torch.configs.base import MoEConfig
     jchange = dict(change)
@@ -233,10 +237,20 @@ def test_unported_configs_raise(change):
     np.testing.assert_allclose(_np(got)[..., :VOCAB], _np(want)[..., :VOCAB],
                                atol=FP32_TOL, rtol=0)
     assert float(aux) == pytest.approx(float(jaux), abs=FP32_TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        build_model(cfg, tp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        tm.apply(tp, torch.from_numpy(toks), moe_impl="ep")
+    from repro_torch.launch.mesh import make_mesh
+    tp2 = build_model(cfg, tp=2)
+    assert tp2.tp == 2 and tp2.num_params() == tm.num_params()
+    again, _ = tp2.apply(tp, torch.from_numpy(toks),
+                         compute_dtype=torch.float32)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+    mesh = make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
+    ep, ep_aux = tm.apply(tp, torch.from_numpy(toks), moe_impl="ep",
+                          mesh=mesh, compute_dtype=torch.float32,
+                          capacity_factor=64.0)
+    dense, _ = tm.apply(tp, torch.from_numpy(toks),
+                        compute_dtype=torch.float32, capacity_factor=64.0)
+    np.testing.assert_allclose(_np(ep), _np(dense), atol=FP32_TOL, rtol=0)
+    assert bool(torch.isfinite(ep_aux))
 
 
 @pytest.mark.parametrize("change", [

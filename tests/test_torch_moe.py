@@ -182,13 +182,34 @@ def test_moe_is_differentiable_through_grad_and_value(layer):
 
 
 def test_expert_parallel_path_is_refused():
-    cfg = dataclasses.replace(smoke_config("qwen2-moe-a2.7b"), vocab_size=64)
-    model = build_model(cfg)
+    """Once refused, now ported: `moe_impl="ep"` on a (1, 2) CPU mesh,
+    the experts padded for ep = 4 on a (1, 4) one, held to the per-entry
+    oracle (tests/moe_ep_oracle.py) at cf 1.25 on the reference's layer-0
+    weights: output and aux within 2e-4; the model forward runs it. What
+    stays refused is an implementation neither package knows."""
+    from repro_torch.launch.mesh import make_mesh
+    from moe_ep_oracle import oracle_ep
+    for M in (2, 4):
+        jcfg = jax_smoke_config("qwen2-moe-a2.7b")
+        cfg = smoke_config("qwen2-moe-a2.7b")
+        jp = jax.jit(jax_build_model(jcfg, ep=M).init)(jax.random.PRNGKey(0))
+        jl = jax.tree.map(lambda t: np.asarray(t[0]),
+                          jp["segments"][0]["moe"])
+        tl = params_from_numpy(jl, device="cpu")
+        assert tl["wg"].shape[0] == tmoe.padded_experts(cfg, M) == \
+            jmoe.padded_experts(jcfg, M)
+        x = _x((1, 9, cfg.d_model), seed=M)
+        mesh = make_mesh((1, M), ("data", "model"), devices=["cpu"] * M)
+        y, aux = tmoe.apply_moe_ep(cfg, tl, torch.from_numpy(x), mesh)
+        want, jaux = oracle_ep(jcfg, jl, jnp.asarray(x), 1, M, 1.25)
+        np.testing.assert_allclose(y.numpy(), np.asarray(want),
+                                   atol=FP32_TOL, rtol=0)
+        assert float(aux) == pytest.approx(float(jaux), abs=FP32_TOL)
+    model = build_model(dataclasses.replace(cfg, vocab_size=64), ep=2)
     params = model.init(seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        model.apply(params, torch.zeros((1, 4), dtype=torch.long),
-                    moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmoe.apply_moe_ep(cfg, params, None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_model(cfg, ep=4)
+    toks = torch.zeros((2, 4), dtype=torch.long)
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    logits, _ = model.apply(params, toks, moe_impl="ep", mesh=mesh)
+    assert logits.shape == (2, 4, 128)
+    with pytest.raises(ValueError, match="unknown moe_impl"):
+        model.apply(params, toks, moe_impl="tutel")

@@ -102,15 +102,16 @@ def test_kernel_routes_give_the_exact_trace(engine):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=None), "item 9"),
-    (dict(elastic=None), "item 9"),
-    (dict(stragglers=None), "item 9"),
-])
+    (dict(mesh=None), "unknown moe_impl"),
+    (dict(elastic=None), "unknown moe_impl"),
+    (dict(stragglers=None), "unknown moe_impl"),
+], ids=["kw0-item 9", "kw1-item 9", "kw2-item 9"])   # the ids they had
 def test_unported_options_refused(kw, item, engine, tmp_path):
     """The controller's `mesh`, `elastic` and `stragglers`, refused until
     distribution's fleet half (item 9a) landed, are taken now: an empty
-    fleet runs a window under each. What distribution still lacks, its
-    model half, is refused naming the item (9b)."""
+    fleet runs a window under each. Its model half (item 9b) is taken
+    too: what stays refused is an implementation name neither package
+    knows."""
     from repro_torch.distributed.elastic import FleetElastic
     from repro_torch.distributed.stragglers import StragglerPolicy
     from repro_torch.launch.mesh import make_fleet_mesh
@@ -120,8 +121,11 @@ def test_unported_options_refused(kw, item, engine, tmp_path):
              "stragglers": StragglerPolicy()}
     ctl = FRAMEWORKS["ecco"](engine, [], **{k: given[k] for k in kw})
     assert ctl.run_window().groups == {}
-    with pytest.raises(NotImplementedError, match=item):
-        check_ported(moe_impl="ep")
+    check_ported(moe_impl="ep", ssm_impl="seqpar")
+    with pytest.raises(ValueError, match=item):
+        check_ported(moe_impl="megablocks")
+    with pytest.raises(ValueError, match="unknown ssm_impl"):
+        check_ported(ssm_impl="ring")
 
 
 # the hostile goldens that the reference itself reproduces in tier-1
