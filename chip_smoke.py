@@ -200,6 +200,27 @@ Phases, in order; the script exits non-zero at the first failure:
    kv heads, GQA group 16): prefill logits kernel vs plain, the padded
    heads masked to zero. (e) `pod_mean_compressed` over 2 pod entries on
    olmo-1b's gradient shapes: equal to the CPU's bit for bit, GB/s.
+6i. The last modules. `[families]` (e), after `[families]`:
+   qwen3-moe-30b-a3b and chameleon-34b at their published configs
+   through `launch.serve.main`, initialised straight in bf16 a layer at
+   a time (61.1 and 68.6 GB), 2 requests in 2 slots, 512-token prompts,
+   8 new tokens; flash_attention's launches held to 48 x (prefills +
+   decode calls) and the combines, the init's seconds, peak memory, the
+   prefill logits kernel vs plain within LOGIT_TOL and qwen3's route
+   flips per layer; each model freed before the next. `[remat]`:
+   olmo-1b at full width, one train step's forward and backward at
+   batch 8 x 256 under remat none / dots / full: loss and gradients equal
+   to none's bit for bit (deterministic algorithms), ms per step, peak
+   memory, full's under none's. `[dryrun]`: the dry run of every
+   (arch, shape) cell on the single mesh, a CPU process per arch (one
+   thread each, CUDA hidden, as many at once as the host has cores but
+   one, the card idle meanwhile): each cell's status, flops per device,
+   dominant term, bound, memory and seconds, the skip cells the
+   reference's; then olmo-1b prefill_32k at batch 1 on the card (16
+   flash_attention launches): the dry run's FLOPs less its plain
+   attention held to the card run's count, the bound on the card's work
+   (attention over the causal keys) and the dry run's own bound against
+   the measured ms, its memory estimate against the peak.
 7. Time each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls) at the
    serving shapes, with CUDA events after warm-up, rotating input buffers
@@ -223,7 +244,10 @@ Phases, in order; the script exits non-zero at the first failure:
    (a) calls as `mesh_call` / `mesh_call_rows` / `mesh_call_cols`;
    flash_attention's `[model_mesh]` (a) and (d) launches and mlstm_scan's
    (b) as `model_mesh_launches`, flash_attention's GQA-16 and window-eval
-   time rows, mlstm_scan's seeded and metered-eval rows),
+   time rows, mlstm_scan's seeded and metered-eval rows; flash_attention's
+   `[families]` (e) launches as `families_large_launches` and
+   `families_large_combine_launches` and the `[dryrun]` card cell's as
+   `dryrun_cell_launches`),
    the nvidia-smi line
    again,
    and as the last line `{"ok": true, "device": {...}}`.
@@ -265,7 +289,7 @@ if not torch.cuda.is_available():
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.configs import SHAPES, get_config, smoke_config  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.core import trainer as _trainer  # noqa: E402
 from repro_torch.core.baselines import FRAMEWORKS  # noqa: E402
@@ -303,8 +327,11 @@ from repro_torch.kernels.ssd_scan import SOURCE as SSD_SOURCE  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     CUDA_CORE as SSD_CUDA_CORE, TENSOR_CORE as SSD_TENSOR_CORE, ssd_scan,
     plan as ssd_plan)
+from repro_torch.distributed.sharding import mesh_rules  # noqa: E402
+from repro_torch.launch import dryrun as dry  # noqa: E402
+from repro_torch.launch import roofline as RL  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.mesh import make_fleet_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_fleet_mesh, make_mesh  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.convert import load_params_npz  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -317,6 +344,8 @@ from repro_torch.serve.plane import (TIMING_KEYS as SERVE_TIMING,  # noqa: E402
 from repro_torch.serve.serve_step import fleet_decode_logits  # noqa: E402
 from repro_torch.testing import trace as wtrace  # noqa: E402
 from repro_torch.testing.invariants import InvariantChecker  # noqa: E402
+from repro_torch.train.train_step import (grad_and_value,  # noqa: E402
+                                          make_loss_fn)
 
 DEV = torch.device("cuda")
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -387,6 +416,34 @@ for _arch in (QWEN2,) + FAM_DENSE:
     SERVING[_arch] = dict(prompt=FAM_PROMPT, capacity=FAM_CAP)
 HUBERT, HU_FRAMES = "hubert-xlarge", (4, 1024)
 QWEN2_FP32_GB = 57.3
+# (e): the two configs whose fp32 trees (122.1 and 137.2 GB) do not fit
+# one card serve at their published configs in bf16 (61.1 and 68.6 GB),
+# initialised straight in bf16 a layer at a time, with llama3-8b's cut
+FAM_LARGE = ("qwen3-moe-30b-a3b", "chameleon-34b")
+for _arch in FAM_LARGE:
+    SERVING[_arch] = dict(prompt=FAM_PROMPT, capacity=FAM_CAP)
+
+# [remat]: olmo-1b at full width, one train step's forward and backward
+# at [train]'s batch (8 x 256) under each remat, bf16 compute over fp32
+# masters (the default TrainConfig but for remat)
+REMATS = ("none", "dots", "full")
+# [dryrun]: the port's dry run over the 10 archs x 4 shapes on the single
+# (16 x 16) mesh, run on the CPU in a process per arch (one thread each;
+# CUDA hidden from them; the slowest archs first), and olmo-1b
+# prefill_32k cut to batch 1 run for real; the reference's skip cells:
+# every full-attention arch at long_500k, and the encoder's decode
+DRYRUN_DIR = os.path.join(HERE, "build", "dryrun_single")
+DRYRUN_ORDER = ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "xlstm-350m",
+                "hymba-1.5b", "olmo-1b", "chameleon-34b", "hubert-xlarge",
+                "llama3-8b", "starcoder2-3b", "stablelm-3b")
+DRYRUN_SKIPS = ({(a, "long_500k") for a in (
+    "olmo-1b", "stablelm-3b", "llama3-8b", "starcoder2-3b",
+    "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "hubert-xlarge",
+    "chameleon-34b")} | {("hubert-xlarge", "decode_32k")})
+DRYRUN_TIMEOUT = 900
+DRYRUN_ROWS = 256          # query rows the long prefill's check holds
+DRYRUN_FLOPS_RTOL = 0.05   # the card cell's count: tests/test_torch_roofline
+DRYRUN_Q_SCALE = 4.0       # the long prefill's check: scores ~ N(0, 16)
 
 # data-sheet peaks (dense): bytes/s of device memory, FLOP/s of bf16
 # tensor cores and of fp32 outside them; matched against nvidia-smi's name
@@ -691,6 +748,7 @@ def check_attention_families(gen):
              "hubert encode, hd 80"),
             (1, FAM_PROMPT, 32, 8, 128, True, "llama3 prefill, G 4"),
             (1, FAM_PROMPT, 32, 4, 128, True, "qwen3-moe prefill, G 8"),
+            (1, FAM_PROMPT, 64, 8, 128, True, "chameleon prefill, G 8"),
             (1, FAM_PROMPT, 24, 2, 128, True, "starcoder2 prefill, G 12")]:
         q = _randn((B, S, H, hd), bf16, gen)
         k, v = (_randn((B, S, K, hd), bf16, gen) for _ in range(2))
@@ -712,6 +770,28 @@ def check_attention_families(gen):
             f"families {what}: q ({FAM_SLOTS},1,{H},{hd}) over bf16 cache "
             f"prefix ({FAM_SLOTS},{T}/{FAM_CAP},{K},{hd}) ({pl.splits} "
             f"splits of {pl.split})", q, kp, vp, "split_decode"))
+    # the [dryrun] card cell's prefill, olmo-1b prefill_32k at batch 1,
+    # held on the first DRYRUN_ROWS query rows (their keys alone) and the
+    # last (every key; all 32768 rows would need 69 GB of fp32 scores). q
+    # scaled by DRYRUN_Q_SCALE peaks the softmax: a row's largest of ~32k
+    # scores leads the next by about 1, so the outputs are O(1) (unit
+    # scores would average ~32k values to ~0.01, under the tolerance) and
+    # a key block missed or added, or the diagonal misplaced, moves every
+    # row whose leading keys it holds by O(1)
+    S = SHAPES["prefill_32k"].seq_len
+    q = _randn((1, S, 16, 128), bf16, gen) * DRYRUN_Q_SCALE
+    k, v = (_randn((1, S, 16, 128), bf16, gen) for _ in range(2))
+    assert fa_plan(q, k, v).path == "prefill"
+    got = flash_attention(q, k, v)
+    n = DRYRUN_ROWS
+    errs.append(_check(
+        f"dryrun cell prefill: q x {DRYRUN_Q_SCALE:g}, k, v (1,{S},16,128) "
+        f"causal, the first {n} query rows [prefill]", got[:, :n],
+        attention_ref(q[:, :n], k[:, :n], v[:, :n]), TOL[bf16]))
+    errs.append(_check(
+        f"dryrun cell prefill: q x {DRYRUN_Q_SCALE:g}, k, v (1,{S},16,128) "
+        f"causal, the last {n} query rows [prefill]", got[:, -n:],
+        attention_ref(q[:, -n:], k, v), TOL[bf16]))
     return errs
 
 
@@ -1191,6 +1271,8 @@ def serve_full_width(arch, requests=REQUESTS, slots=SLOTS, max_new=MAX_NEW):
         assert len(toks) == max_new, (rid, len(toks))
         assert all(0 <= t < cfg.vocab_size for t in toks), rid
     prefills = len(report["prefill_s"])
+    print(f"[serve] {arch}: parameters initialised in bf16 in "
+          f"{report['init_s']:.2f}s")
     want = expected_launches(cfg, prefills, report["decode_calls"])
     print(f"[serve] {arch}: launches {launches} (prefills={prefills}, "
           f"decode calls={report['decode_calls']}: expected {want})")
@@ -3218,8 +3300,8 @@ def families():
     print(f"[families] (a) {QWEN2}: {n / 1e9:.2f} B parameters, "
           f"{4 * n / 1e9:.2f} GB in fp32 (reckoned {QWEN2_FP32_GB} GB); "
           f"peak device memory over the launcher's run {peak:.2f} GB (the "
-          f"fp32 tree, its bf16 serving copy made leaf by leaf, the bf16 "
-          f"pool of {SLOTS} x {FAM_CAP})")
+          f"bf16 tree, initialised a layer at a time, the bf16 pool of "
+          f"{SLOTS} x {FAM_CAP})")
     _free_device()
     profile_serving(QWEN2)
     _free_device()
@@ -3234,6 +3316,230 @@ def families():
     _free_device()
     families_smoke()
     return total["flash_attention"], total["flash_attention_combine"]
+
+
+def families_large():
+    """[families] (e): qwen3-moe-30b-a3b and chameleon-34b at their
+    published configs through `launch.serve.main`, which initialises them
+    straight in bf16, a stacked leaf one layer at a time (61.1 and 68.6 GB;
+    their fp32 trees, 122.1 and 137.2 GB, would not fit), with llama3-8b's
+    cut (2 requests, 2 slots, 512-token prompts, 8 new tokens): launches
+    held to `expected_launches` (48 layers x (prefills + decode calls),
+    and the combines), the init's seconds, peak device memory over the
+    run; then `family_logits`, the prefill logits kernel vs plain route
+    and qwen3's route flips per layer. Each model is freed before the
+    next. Returns the flash_attention launches and combines."""
+    total = collections.Counter()
+    for arch in FAM_LARGE:
+        _free_device()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        total.update(serve_full_width(arch, FAM_SLOTS, FAM_SLOTS, FAM_NEW))
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        n = build_model(get_config(arch)).num_params()
+        print(f"[families] (e) {arch}: {n / 1e9:.2f} B parameters, "
+              f"{2 * n / 1e9:.2f} GB in bf16 ({4 * n / 1e9:.1f} GB in fp32); "
+              f"peak device memory over the launcher's run {peak:.2f} GB "
+              f"(the bf16 tree, one layer's fp32 draw during the init, "
+              f"the bf16 pool of {FAM_SLOTS} x {FAM_CAP})")
+        _free_device()
+        family_logits(arch)
+    _free_device()
+    return total["flash_attention"], total["flash_attention_combine"]
+
+
+# ---------------------------------------------------------------------------
+# phase 6i: remat and the dry run
+# ---------------------------------------------------------------------------
+def remat_full_width():
+    """[remat]: olmo-1b at full width, one train step's forward and
+    backward (`train_step.grad_and_value` over `make_loss_fn`; AdamW,
+    which remat does not touch, left out) at batch 8 x 256 under remat
+    none / dots / full, bf16 compute over fp32 masters: the loss and the
+    largest gradient difference against none's (under deterministic
+    algorithms: none, both held bit for bit), ms per step (CUDA events, 3
+    calls after one), and the peak device memory over the step above
+    what was allocated before it (parameters and none's kept gradients).
+    No flash_attention launch: the train route runs the plain forms.
+    Returns {remat: (ms, peak GB)}."""
+    cfg = get_config(ARCH)
+    model = build_model(cfg)
+    _free_device()
+    params = model.init(seed=0, device=DEV)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ)), device=DEV)
+    batch = {"inputs": toks, "labels": toks}
+    steps = {r: grad_and_value(make_loss_fn(model, TrainConfig(remat=r)))
+             for r in REMATS}
+    steps["none"](params, batch)                      # warm-up
+    reset_launches()
+    out, want = {}, None
+    for remat in REMATS:
+        _free_device()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads, (loss, _) = _deterministic(steps[remat], params, batch)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        if want is None:
+            want, diff = (grads, loss), 0.0
+        else:
+            diff = max(float((g - w).abs().max()) for g, w in
+                       zip(tree_leaves(grads), tree_leaves(want[0])))
+        del grads
+        ms = _time_ms(lambda: steps[remat](params, batch), [()], iters=3,
+                      warmup=1)
+        out[remat] = (ms, peak)
+        print(f"[remat] {ARCH} batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat "
+              f"{remat}: loss {float(loss):.6f} (none's "
+              f"{float(want[1]):.6f}), largest |grad - none's| {diff:.3e}; "
+              f"{ms:.1f} ms a forward + backward; peak {peak:.2f} GB over "
+              f"the step")
+        assert torch.isfinite(loss) and torch.equal(loss, want[1]), remat
+        assert diff == 0.0, (remat, diff)
+    assert launch_counts()["flash_attention"] == 0, launch_counts()
+    assert out["full"][1] < out["none"][1], out
+    del want, params
+    _free_device()
+    return out
+
+
+def _dryrun_arch(arch):
+    """One arch's four cells in a process of its own on one CPU thread,
+    with CUDA hidden from it; returns (arch, exit code, seconds)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    out = os.path.join(DRYRUN_DIR, f"{arch}.json")
+    t0 = time.perf_counter()
+    with open(out + ".log", "w") as log:
+        rc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--mesh", "single", "--out", out], cwd=HERE, env=env,
+            stdout=log, stderr=subprocess.STDOUT,
+            timeout=DRYRUN_TIMEOUT).returncode
+    return arch, rc, time.perf_counter() - t0
+
+
+def dryrun_cells():
+    """[dryrun]: the dry run's 40 cells (10 archs x 4 shapes, single
+    mesh, tp policy, remat full), one process per arch, as many at once
+    as the host has cores but one, while the card idles (no phase is
+    timed beside them): each cell's status, flops per device, dominant
+    term and seconds; the skip cells must be the reference's
+    (DRYRUN_SKIPS), every other cell priced (the MoE cells
+    expert-parallel)."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    t0 = time.perf_counter()
+    workers = max(1, min(len(DRYRUN_ORDER), (os.cpu_count() or 2) - 1))
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        runs = list(pool.map(_dryrun_arch, DRYRUN_ORDER))
+    waited = time.perf_counter() - t0
+    results = []
+    for arch, rc, secs in runs:
+        assert rc == 0, f"the dry run of {arch} exited {rc}; see " \
+            f"{DRYRUN_DIR}/{arch}.json.log"
+        print(f"[dryrun] {arch}: its process {secs:.1f} s")
+        with open(os.path.join(DRYRUN_DIR, f"{arch}.json")) as f:
+            results += json.load(f)
+    cells = {(r["arch"], r["shape"]) for r in results}
+    assert len(results) == 40 and len(cells) == 40, len(results)
+    for r in results:
+        if r["status"] != "ok":
+            print(f"[dryrun] {r['arch']} x {r['shape']}: {r['status']}")
+            continue
+        print(f"[dryrun] {r['arch']} x {r['shape']}: ok, "
+              f"flops/dev={r['flops_per_device']:.4e} dominant="
+              f"{r['dominant']} bound={1e3 * r['step_time_bound_s']:.3f} "
+              f"ms moe_impl={r['moe_impl']} peak="
+              f"{r['memory']['peak_estimate_bytes'] / 1e9:.2f} GB/dev; "
+              f"{r['t_lower_s'] + r['t_compile_s'] + r['t_layer_costs_s']:.1f}"
+              f" s")
+    skips = {(r["arch"], r["shape"]) for r in results
+             if r["status"].startswith("skip")}
+    assert skips == DRYRUN_SKIPS, sorted(skips ^ DRYRUN_SKIPS)
+    assert all(r["status"] == "ok" for r in results
+               if (r["arch"], r["shape"]) not in skips)
+    assert all(r["moe_impl"] == "ep" for r in results if r["status"] == "ok"
+               and r["arch"] in ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"))
+    print(f"[dryrun] 40 cells, {len(skips)} skipped as the reference "
+          f"skips them, in {waited:.1f} s over {workers} processes at once")
+
+
+def dryrun_card_cell(pk):
+    """[dryrun] (card): olmo-1b prefill_32k cut to batch 1 (from 32), the
+    dry run's count of it on one entry (`dryrun.step_cost`) against the
+    card: fp32 parameters (the tp policy's serving dtype), bf16 compute,
+    one prefill through flash_attention (16 launches). The card run is
+    counted by the same counters on CUDA tensors, to which the kernel is
+    invisible, so the count is held on that part alone: the dry run's
+    count less its plain attention (`attention_ref` counted on `meta` at
+    the layer's shapes, every key, as the plain route computes it)
+    against the card's count, within DRYRUN_FLOPS_RTOL. The kernel's
+    work is what this causal run needs, 4 H hd S (S + 1) / 2 a layer (each
+    query row's visible keys), and the bound on the card's work is that
+    plus the counted part over the bf16 peak, or the dry run's bytes over
+    HBM, the larger; beside it the dry run's own bound (every key) and
+    the measured ms (CUDA events, 3 prefills after one). The dry run's
+    memory estimate (parameters + cache + the largest layer's
+    allocations + the last logits) against the peak over init and
+    prefill. Returns the launches of the counted prefill."""
+    cfg = get_config(ARCH)
+    model = build_model(cfg)
+    S = SHAPES["prefill_32k"].seq_len
+    H, hd, L = cfg.num_heads, cfg.resolved_head_dim, cfg.num_layers
+    mesh1 = make_mesh((1, 1), ("data", "model"), devices=["meta"])
+    cost = dry.step_cost(cfg, "prefill", 1, S, mesh=mesh1,
+                         rules=mesh_rules(mesh1, cfg))
+    qm = torch.empty((1, S, H, hd), dtype=torch.bfloat16, device="meta")
+    plain_attn = L * RL._count(lambda: attention_ref(qm, qm, qm))[0]
+    dry_counted = cost["flops"] - plain_attn
+    dry_bound_ms = 1e3 * max(cost["bytes"] / pk["bytes"],
+                             cost["flops"] / pk[torch.bfloat16])
+    n = model.num_params()
+    est = (4 * n + RL._tree_bytes(model.cache_spec(1, S))
+           + cost["temp_bytes"] + 4 * cfg.vocab_size) / 1e9
+    _free_device()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, device=DEV)
+    x = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(1, S)), device=DEV)
+    reset_launches()
+    with torch.no_grad():
+        counted, _, _, (last, _, _) = RL._count(
+            lambda: model.prefill(params, x, S))
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = launch_counts()
+    assert launches["flash_attention"] == L, launches
+    assert bool(torch.isfinite(last).all()), "non-finite logits"
+    kernel = L * 4 * H * hd * S * (S + 1) // 2
+    card = counted + kernel
+    terms = {"bytes": cost["bytes"] / pk["bytes"],
+             "operations": card / pk[torch.bfloat16]}
+    by = max(terms, key=terms.get)
+    bound_ms = 1e3 * terms[by]
+    with torch.no_grad():
+        ms = _time_ms(lambda: model.prefill(params, x, S), [()], iters=3,
+                      warmup=1)
+    ratio = dry_counted / counted
+    print(f"[dryrun] card cell {ARCH} prefill_32k at batch 1: the counted "
+          f"part, dry run {dry_counted:.4e} FLOPs (its {cost['flops']:.4e} "
+          f"less {plain_attn:.4e} of plain attention over every key) "
+          f"against the card's {counted:.4e}, ratio {ratio:.4f} (limit "
+          f"{DRYRUN_FLOPS_RTOL:g}); the card's work {card:.4e} FLOPs with "
+          f"flash_attention's {kernel:.4e} over the causal keys; bound "
+          f"{bound_ms:.3f} ms (by {by}) on that work against {ms:.3f} ms "
+          f"measured ({100 * bound_ms / ms:.1f} %); the dry run's own "
+          f"bound {dry_bound_ms:.3f} ms (every key); memory estimate "
+          f"{est:.2f} GB against a peak of {peak:.2f} GB over init and "
+          f"prefill; {launches['flash_attention']} flash_attention "
+          f"launches")
+    assert abs(ratio - 1.0) <= DRYRUN_FLOPS_RTOL, ratio
+    del params, last
+    _free_device()
+    return launches["flash_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -4417,6 +4723,18 @@ def main():
     t_start = time.perf_counter()
 
     phase("build", build_all)
+    kernels = run_phases(pk)
+    print(f"[env] chip_smoke ran {time.perf_counter() - t_start:.1f}s after "
+          f"start-up")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card,
+        "count": torch.cuda.device_count()}}))
+
+
+def run_phases(pk):
+    """Every phase after the build; returns the kernels' JSON entries."""
     hmma = phase("tensor-core report", tensor_core_report)
     cap = index_capacity(JOINERS)
     err = {"flash_attention": phase("check flash_attention",
@@ -4467,10 +4785,14 @@ def main():
     phase("fleet smoke", fleet_smoke)
     torch.cuda.empty_cache()
     fam = phase("families", families)
+    fam_large = phase("families (e)", families_large)
     _free_device()
     mesh_calls, mesh_launches, mesh_ckpt = phase("mesh", mesh)
     mm_flash, mm_mlstm, mm_seeded_err = phase("model_mesh", model_mesh)
     torch.cuda.empty_cache()
+    phase("remat", remat_full_width)
+    phase("dryrun", dryrun_cells)
+    dry_flash = phase("dryrun card cell", dryrun_card_cell, pk)
     att = phase("time flash_attention", time_attention, pk)
     phase("sweep flash_attention plans", sweep_attention_plans)
     fd = phase("time fleet_drift", time_fleet_drift, pk, windows, refs)
@@ -4511,6 +4833,9 @@ def main():
              meter_launches=meter["flash_attention"],
              fleet_launches=fleet[0], fleet_combine_launches=fleet[1],
              families_launches=fam[0], families_combine_launches=fam[1],
+             families_large_launches=fam_large[0],
+             families_large_combine_launches=fam_large[1],
+             dryrun_cell_launches=dry_flash,
              mesh_launches=mesh_launches["flash_attention"],
              model_mesh_launches=mm_flash,
              tensor_core_hmma=hmma),
@@ -4554,13 +4879,7 @@ def main():
         else:
             assert math.isfinite(e["library_ms"]), e
     print(f"[mesh] checkpoint of one {ARCH} job: {mesh_ckpt}")
-    print(f"[env] chip_smoke ran {time.perf_counter() - t_start:.1f}s after "
-          f"start-up")
-    print(json.dumps({"kernels": kernels}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": card,
-        "count": torch.cuda.device_count()}}))
+    return kernels
 
 
 if __name__ == "__main__":

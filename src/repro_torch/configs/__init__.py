@@ -3,15 +3,17 @@
 Each architecture lives in its own module with the exact published
 dimensions; `smoke_config()` returns a reduced same-family variant used by
 CPU tests. The registry is the JAX package's, in its order: the dense,
-MoE, hybrid, xLSTM, encoder and VLM families. (Its `SHAPES` and
-`cell_is_runnable` belong to the dry run, ROADMAP.md queue 1 item 10.)
+MoE, hybrid, xLSTM, encoder and VLM families, with the dry run's
+`SHAPES` and `cell_is_runnable`.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (  # noqa: F401  (re-exported)
+    DENSE, ENCODER, HYBRID, MOE, SSM, VLM, ModelConfig, MoEConfig,
+    SHAPES, SSMConfig, ShapeConfig, TrainConfig)
 
 _ARCH_MODULES: Dict[str, str] = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
@@ -39,3 +41,14 @@ def smoke_config(arch: str) -> ModelConfig:
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(_ARCH_MODULES[arch]).smoke_config()
+
+
+def cell_is_runnable(cfg: ModelConfig, shape_name: str) -> str:
+    """Return 'ok' or a skip reason for an (arch, shape) cell."""
+    shape = SHAPES[shape_name]
+    if shape.kind == "decode" and not cfg.has_decode:
+        return "skip: encoder-only arch has no decode step"
+    if shape_name == "long_500k" and not cfg.sub_quadratic:
+        return ("skip: full-attention arch; 524k decode needs "
+                "sub-quadratic attention")
+    return "ok"

@@ -1,6 +1,7 @@
 """Config dataclasses, a copy of the JAX package's `configs/base.py`: the
-model configs and `TrainConfig` (shapes and mesh configs arrive with the
-slices that use them).
+model configs, the dry run's `ShapeConfig` / `SHAPES` and `TrainConfig`.
+(The reference's `MeshConfig` has no reader; the port's meshes are built
+by `launch.mesh`.)
 
 Every architecture the port serves gets a `ModelConfig` in its own module
 under `repro_torch.configs`; the registry in `__init__.py` exposes
@@ -126,6 +127,25 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Shapes (the dry run's cells)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
 # Training configuration
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
@@ -147,12 +167,8 @@ class TrainConfig:
 
 def check_train_config(tcfg: TrainConfig):
     """Raise NotImplementedError for a field the port's train step does not
-    honour, rather than train without it: remat (not ported yet), and
-    compress_pod_grads, which no train step of either package reads."""
-    if tcfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={tcfg.remat!r} not ported yet (ROADMAP.md queue 1 item "
-            f"10, launch/train.py); use remat='none'")
+    honour, rather than train without it: compress_pod_grads, which no
+    train step of either package reads."""
     if tcfg.compress_pod_grads:
         raise NotImplementedError(
             "compress_pod_grads is read by no train step of the reference "

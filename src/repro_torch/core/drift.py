@@ -395,6 +395,8 @@ class FleetDriftDetector:
         fs, _ = ops.fleet_drift(t, r, buckets=self.buckets,
                                 vocab=int(self.vocab or 0), impl=self.impl,
                                 mesh=self.mesh)
+        # fleetlint: disable=host-sync -- the screen's one (n,) result
+        # crossing per observe, for the float64 host rescore that decides
         return fs.cpu().numpy().astype(np.float64)
 
     # -- snapshot / restore (elastic window rollback) ----------------------

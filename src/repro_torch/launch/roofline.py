@@ -23,13 +23,14 @@ numbers on the CPU and on the card:
     the hand-written kernels are never launched by a count — while
     `torch.utils.flop_counter.FlopCounterMode` counts the matrix
     products (2 M N K each) and `_ArithmeticCounter` the rest of the
-    arithmetic: one FLOP per output element of a pointwise op, per input
+    arithmetic: one FLOP per output element of a pointwise op (a fused
+    one, the tanh GELU, the operations of its formula), per input
     element of a reduction, and per element of a dtype cast, which is
-    how XLA's cost analysis counts elementwise work.
-  * Bytes, from the shapes (P parameters, T = batch x tokens, e the
-    compute dtype's element size, A = the sum over the model's matrices
-    of fan-in + fan-out per token, C the cache's bytes at its own
-    dtypes):
+    how XLA's cost analysis counts elementwise work; copies count none.
+  * Bytes, from the shapes (`pass_bytes`; P parameters, T = batch x
+    tokens, e the compute dtype's element size, A = the sum over the
+    model's matrices of fan-in + fan-out per token, `_matrix_width`, C
+    the cache's bytes at its own dtypes):
         eval     4P [+ 2P + 2P at bf16: the cast's write, the pass's read]
                  + e A T + 4T (token ids)
         prefill  eval at T = batch x (seq + meta tokens), + C
@@ -38,23 +39,33 @@ numbers on the CPU and on the card:
                  activations read back, their gradients written)
         decode   4P [+ 4P at bf16] + C + e A batch + 4 batch
 
-Not carried: `segment_layer_cost` / `corrected_cost`, the reference's
-correction of XLA's once-counted scan bodies. The port's eager passes
-run every layer, so the count sees them all. The dry run's per-cell
-accounting (`launch/dryrun.py` in the reference) waits for ROADMAP.md
-queue 1 item 10.
+`segment_layer_cost` counts one layer of a segment with the same
+counter, width rule and bytes formula (its parameters already in the
+compute dtype, cast once before the layers), for the dry run's
+per-layer list (`launch/dryrun.py`): forward for a prefill,
+forward + backward under the cell's remat for a train step, one decode
+step over a cache slice, with the seqpar mLSTM and the expert-parallel
+MoE run over the cell's mesh, whose entries all stand on `meta`. The
+reference's `corrected_cost` adds (count - 1) layers to XLA's count of a
+scanned model, whose loop bodies XLA counts once; eager PyTorch has no
+such body to correct, so the dry run sums count x layer itself.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import math
 from typing import Dict, Optional
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.models import param as P
 
 PRECISIONS = ("fp32", "bf16")
 
@@ -93,6 +104,9 @@ class DeviceSpec:
     peak_flops_bf16: float = 989e12
     peak_flops_fp32: float = 67e12
     hbm_bw: float = 3.35e12
+    # NVLink 4 on the H100 SXM: 900 GB/s per GPU, both directions together
+    # (NVIDIA H100 Tensor Core GPU datasheet); 450 GB/s each way
+    link_bw: float = 450e9
 
     def peak(self, precision: str) -> float:
         precision_dtype(precision)      # validate
@@ -105,12 +119,21 @@ class DeviceSpec:
                    cost.bytes / self.hbm_bw)
 
 
+# operations per element of the fused pointwise ops the models run, as
+# their formulas do them (the tanh GELU: x^3 2, x kappa 1, + x 1, x beta
+# 1, tanh 1, + 1 1, x x 1, x 0.5 1; its backward, aten's formula: 18)
+FUSED_POINTWISE = {(torch.ops.aten.gelu, "tanh"): 9,
+                   (torch.ops.aten.gelu_backward, "tanh"): 18}
+
+
 class _ArithmeticCounter(TorchDispatchMode):
     """Counts the arithmetic that `FlopCounterMode` leaves out: one FLOP
     per output element of a pointwise op, per input element of a
     reduction, and per element of a dtype cast. Ops that
     `FlopCounterMode` prices (the matrix products) are skipped, and so
-    are copies and views, which move data without arithmetic."""
+    are copies and views, which move data without arithmetic (`clone`
+    among them, which aten tags pointwise). A fused pointwise op counts
+    the operations of its formula (`FUSED_POINTWISE`)."""
 
     def __init__(self):
         super().__init__()
@@ -120,12 +143,13 @@ class _ArithmeticCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         packet = func._overloadpacket
-        if packet in flop_registry:
+        if packet in flop_registry or packet is torch.ops.aten.clone:
             return out
         if torch.Tag.pointwise in func.tags:
             first = out[0] if isinstance(out, (tuple, list)) else out
             if isinstance(first, torch.Tensor):
-                self.flops += first.numel()
+                self.flops += first.numel() * FUSED_POINTWISE.get(
+                    (packet, kwargs.get("approximate", "none")), 1)
         elif torch.Tag.reduction in func.tags:
             if args and isinstance(args[0], torch.Tensor):
                 self.flops += args[0].numel()
@@ -134,6 +158,62 @@ class _ArithmeticCounter(TorchDispatchMode):
             if kwargs.get("dtype", src.dtype) != src.dtype:
                 self.flops += src.numel()
         return out
+
+
+class _LiveStorage(TorchDispatchMode):
+    """Weak references to every storage an op creates while the mode is
+    on, with its bytes: `alive()` sums those still referenced, `created`
+    all of them."""
+
+    def __init__(self):
+        super().__init__()
+        self.refs = {}
+        self.created = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                ref = StorageWeakRef(st)
+                if ref.cdata not in self.refs:
+                    self.refs[ref.cdata] = (ref, st.nbytes())
+                    self.created += st.nbytes()
+        return out
+
+    def alive(self) -> int:
+        gc.collect()
+        return sum(n for ref, n in self.refs.values() if not ref.expired())
+
+
+def saved_bytes(fn, *args, **kwargs):
+    """(fn(*args, **kwargs), bytes): the bytes of the storages created
+    inside `fn` that are still alive when it returns. Run with grad on
+    over a forward that returns its loss, these are what the autograd
+    graph keeps for the backward, under any remat: the activations saved
+    outside checkpointed regions, each checkpointed region's inputs, and
+    the matrix products a selective policy keeps. (A
+    `torch.autograd.graph.saved_tensors_hooks` pair outside a
+    checkpointed region never sees the tensors saved inside it, so the
+    count follows storages instead.) Works on `meta` tensors."""
+    mode = _LiveStorage()
+    with mode:
+        out = fn(*args, **kwargs)
+    return out, mode.alive()
+
+
+def _count(fn):
+    """(FLOPs, storages' bytes alive after, bytes created, fn's value) of
+    fn() (the dry run's tensors are `meta`; any device's are counted
+    alike): the matrix products (`FlopCounterMode`) and the rest of the
+    arithmetic (`_ArithmeticCounter`)."""
+    products = FlopCounterMode(display=False)
+    rest = _ArithmeticCounter()
+    live = _LiveStorage()
+    with products, rest, live:
+        out = fn()
+    return (float(products.get_total_flops() + rest.flops), live.alive(),
+            live.created, out)
 
 
 def _meta(tree, dtype):
@@ -158,22 +238,28 @@ def _spec_leaves(tree):
         yield tree
 
 
-def _matrix_width(spec) -> int:
-    """A: the sum over the model's matrices of fan-in + fan-out, per
-    token. Segment leaves carry a leading layer axis; a matrix is a leaf
-    with two or more dims beyond it (fan-in its first, fan-out the
-    product of the rest)."""
-    width = 0
+def _matrix_width(cfg: ModelConfig, spec) -> float:
+    """A: the sum over the matrices of `spec` (a model's or one layer's)
+    of fan-in + fan-out, per token. A matrix is a leaf of two or more
+    dims once a segment's leading layer axis is dropped (the leaf then
+    counts once per layer); d_model is one side where a first or last
+    dim is d_model (the attention projections' heads and head dims form
+    the other), else the first dim against the rest; a leaf with a
+    leading experts axis counts top_k of its experts."""
+    width = 0.0
     for name, sub in spec.items():
-        if name == "segments":
-            for leaf in _spec_leaves(sub):
-                if len(leaf.shape) >= 3:
-                    width += leaf.shape[0] * (
-                        leaf.shape[1] + math.prod(leaf.shape[2:]))
-        else:
-            for leaf in _spec_leaves(sub):
-                if len(leaf.shape) >= 2:
-                    width += leaf.shape[0] + math.prod(leaf.shape[1:])
+        for leaf in _spec_leaves(sub):
+            shape, axes, layers = leaf.shape, leaf.axes, 1
+            if name == "segments":
+                layers, shape, axes = shape[0], shape[1:], axes[1:]
+            share = 1.0
+            if axes[:1] == ("experts",):
+                shape, share = shape[1:], cfg.moe.top_k / shape[0]
+            if len(shape) < 2:
+                continue
+            side = cfg.d_model if cfg.d_model in (shape[0], shape[-1]) \
+                else shape[0]
+            width += layers * share * (side + math.prod(shape) // side)
     return width
 
 
@@ -220,11 +306,11 @@ class CostTable:
                               device="meta")
                   if cfg.embedding_frontend else toks)
         if kind == "train":
-            from repro_torch.train.train_step import make_loss_fn
+            from repro_torch.train.train_step import (grad_and_value,
+                                                      make_loss_fn)
             tcfg = TrainConfig(remat="none",
                                compute_dtype=str(cd).split(".")[-1])
-            loss_fn = make_loss_fn(model, tcfg)
-            torch.func.grad_and_value(loss_fn, has_aux=True)(
+            grad_and_value(make_loss_fn(model, tcfg))(
                 params, {"inputs": inputs, "labels": toks})
             return
         with torch.no_grad():
@@ -243,33 +329,19 @@ class CostTable:
                              kernel_impl="ref")
 
     def _flops(self, model, batch: int, seq: int, kind: str, cd) -> float:
-        products = FlopCounterMode(display=False)
-        rest = _ArithmeticCounter()
-        with products, rest:
-            self._run(model, batch, seq, kind, cd)
-        return float(products.get_total_flops() + rest.flops)
+        return _count(lambda: self._run(model, batch, seq, kind, cd))[0]
 
     def _bytes(self, model, batch: int, seq: int, kind: str, cd) -> float:
         cfg = model.cfg
-        n = model.num_params()
         e = torch.empty((), dtype=cd).element_size()
-        bf16 = cd != torch.float32
-        weights = 4 * n + (4 * n if bf16 else 0)
-        width = _matrix_width(model.spec)
-        if kind == "decode":
-            cache = _tree_bytes(model.cache_spec(batch,
-                                                 seq + cfg.meta_tokens))
-            return float(weights + cache + e * width * batch + 4 * batch)
-        tokens = batch * (seq + (cfg.meta_tokens if kind == "prefill"
-                                 else 0))
-        total = weights + e * width * tokens + 4 * tokens
-        if kind == "prefill":
-            total += _tree_bytes(model.cache_spec(batch,
-                                                  seq + cfg.meta_tokens))
-        elif kind == "train":
-            total += (2 * n if bf16 else 4 * n) + 4 * n \
-                + 2 * e * width * tokens
-        return float(total)
+        cap = seq + cfg.meta_tokens
+        tokens = batch * (1 if kind == "decode" else
+                          cap if kind == "prefill" else seq)
+        cache = (_tree_bytes(model.cache_spec(batch, cap))
+                 if kind in ("prefill", "decode") else 0)
+        return pass_bytes(model.num_params(), _matrix_width(cfg, model.spec),
+                          tokens, kind, e, masters=True, cache=cache,
+                          ids=batch if kind == "decode" else tokens)
 
     # -- public API ---------------------------------------------------------
     def cost(self, cfg: ModelConfig, *, batch: int, seq: int, kind: str,
@@ -295,6 +367,262 @@ class CostTable:
         return self.device.seconds(
             self.cost(cfg, batch=batch, seq=seq, kind=kind,
                       precision=precision), precision)
+
+
+# ---------------------------------------------------------------------------
+# Per-layer costs (the dry run's accounting)
+# ---------------------------------------------------------------------------
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def ways(entry, mesh) -> int:
+    """Entries a pspec entry (None, an axis or a tuple of axes) spans."""
+    if entry is None:
+        return 1
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return math.prod(int(mesh.shape[a]) for a in names)
+
+
+def _tree_numel(spec) -> int:
+    return sum(math.prod(s.shape) for s in _spec_leaves(spec))
+
+
+def _layer_collectives(cfg: ModelConfig, kind_seg: str, lspec, *, mesh,
+                       rules, batch: int, seq: int, kind: str,
+                       moe_impl: str, ssm_impl: str, remat: str, e: int,
+                       capacity_factor: float) -> Dict[str, float]:
+    """Per-device wire bytes of one layer's collectives, by kind, from
+    the rules (all-reduce counted at twice its result bytes, the
+    reference's ring convention). Activation collectives run once per
+    forward and once more in a train step's backward (twice more under
+    remat "full", whose recompute repeats them):
+      * all-reduce: tensor parallelism, one (T, D) partial sum per
+        sharded output projection (attention's and the MLP's in a block,
+        the out projection of an xLSTM block); a train step's data-
+        parallel gradient all-reduce (fp32) of the leaves FSDP does not
+        shard;
+      * all-gather: FSDP, each entry gathering the other f - 1 blocks of
+        the leaves FSDP shards (in the compute dtype, cast once before
+        the layers as the reference does), once a forward and again in
+        the backward; the seqpar mLSTM's state summaries (fp32), each
+        entry receiving the other M - 1;
+      * reduce-scatter: FSDP, a train step's fp32 gradients of those
+        leaves;
+      * all-to-all: expert parallelism, the (E, C, D) buffer out and back,
+        (M - 1) / M of it leaving the entry;
+      * collective-permute: the seqpar halo, W - 1 rows of the left
+        neighbour's conv input.
+    T is the tokens one entry holds: batch and sequence split over the
+    axes the rules give them (decode: one token a sequence)."""
+    out = {k: 0.0 for k in COLLECTIVES}
+    tokens_seq = 1 if kind == "decode" else seq
+    b_dev = -(-batch // ways(rules.get("batch"), mesh))
+    seqpar = kind_seg == "mlstm" and ssm_impl == "seqpar" and kind != "decode"
+    seq_ways = (ways("model", mesh) if seqpar
+                else ways(rules.get("seq"), mesh) if kind != "decode" else 1)
+    t_dev = b_dev * -(-tokens_seq // seq_ways)
+    D = cfg.d_model
+    passes = 1 if kind != "train" else (3 if remat == "full" else 2)
+    tp = ways(rules.get("heads"), mesh) if kind_seg == "block" else \
+        ways(rules.get("mlp"), mesh)
+    moe_ep = kind_seg == "block" and cfg.moe is not None and \
+        moe_impl == "ep" and ways("model", mesh) > 1
+    if tp > 1:
+        sharded = (2 if kind_seg == "block" and not moe_ep else 1)
+        out["all-reduce"] += passes * sharded * 2.0 * t_dev * D * e
+    fsdp = rules.get("fsdp")
+    f = ways(fsdp, mesh)
+    fsdp_axes = set(fsdp if isinstance(fsdp, tuple) else (fsdp,)) - {None}
+    gathered = replicated = 0
+    for leaf in _spec_leaves(lspec):
+        n = math.prod(P._block_shape(leaf, mesh, rules))
+        named = set()
+        for entry in P.logical_to_pspec(leaf.axes, rules):
+            named.update(entry if isinstance(entry, tuple) else (entry,))
+        if fsdp_axes & named:
+            gathered += n
+        else:
+            replicated += n
+    if f > 1:
+        gathers = 2 if kind == "train" else 1
+        out["all-gather"] += gathers * (f - 1) * gathered * e
+        if kind == "train":
+            out["reduce-scatter"] += (f - 1) * gathered * 4.0
+    if kind == "train" and ways(rules.get("batch"), mesh) > 1:
+        # the gradients of the leaves FSDP does not shard, over the data
+        out["all-reduce"] += 2.0 * (replicated + (0 if f > 1 else gathered)
+                                    ) * 4.0
+    if moe_ep:
+        M = ways("model", mesh)
+        E = lspec["moe"]["wg"].shape[0]
+        t_entry = max(1, t_dev // M)
+        C = max(1, int(t_entry * cfg.moe.top_k / E * capacity_factor))
+        out["all-to-all"] += passes * 2.0 * (M - 1) / M * E * C * D * e
+    if seqpar:
+        from repro_torch.models import xlstm as xlstm_lib
+        M = ways("model", mesh)
+        di, H, Ph = xlstm_lib.mlstm_heads(cfg)
+        summary = 4.0 * b_dev * H * (Ph * Ph + Ph + 2)
+        grads = 2 if kind == "train" else 1
+        out["all-gather"] += grads * (M - 1) * summary
+        out["collective-permute"] += grads * b_dev * \
+            (cfg.ssm.conv_width - 1) * di * e
+    out["total"] = float(sum(out[k] for k in COLLECTIVES))
+    return out
+
+
+def pass_bytes(n_params: int, width: float, tokens: int, kind: str,
+               e: int, *, masters: bool = False, remat: str = "none",
+               cache: int = 0, ids: int = 0) -> float:
+    """Bytes one pass moves at the compute dtype's element size e (the
+    module docstring's formula): the parameters read, e P, or with
+    `masters` the fp32 masters, 4P, plus at e < 4 the cast's write and
+    the pass's read, 2 e P; the matrices' inputs and outputs, e A T; a
+    train step adds the backward's parameter read, the fp32 gradients'
+    write and 2 e A T, and remat "full" a second forward (e P + e A T);
+    the cache read (decode) or written (prefill); 4 bytes per token id
+    read."""
+    weights = (4 + (2 * e if e < 4 else 0)) * n_params if masters \
+        else e * n_params
+    total = weights + e * width * tokens + cache + 4 * ids
+    if kind == "train":
+        total += e * n_params + 4 * n_params + 2 * e * width * tokens
+        if remat == "full":
+            total += e * n_params + e * width * tokens
+    return float(total)
+
+
+def layer_cache_spec(cfg: ModelConfig, seg, batch: int, cap: int):
+    """The spec tree of one layer's decode cache in the first segment of
+    `cfg`'s plan equal to `seg` (the segment's stacked cache, its layers
+    axis dropped)."""
+    from repro_torch.models import transformer as T
+    i = T.layer_plan(cfg).index(seg)
+    return P.tree_map(lambda s: P.Spec(s.shape[1:], s.axes[1:], s.init,
+                                       s.scale),
+                      T.cache_spec(cfg, batch, cap)["segments"][i])
+
+
+def segment_layer_cost(cfg: ModelConfig, seg, *, mesh, rules, batch: int,
+                       seq: int, kind: str, moe_impl: str = "dense",
+                       remat: str = "none", capacity_factor: float = 1.25,
+                       ssm_impl: str = "gspmd", ep: int = 1, tp: int = 1,
+                       compute_dtype=torch.bfloat16) -> Dict[str, object]:
+    """Count one layer of `seg` (a `transformer.Segment`) on `meta`
+    tensors at the global (batch, seq), parameters and activations in
+    `compute_dtype`: "train" is the forward and backward through
+    `transformer._remat_wrap(remat)` (vjp with a cotangent the shape of
+    the output, the train route's plain forms), "prefill" the forward
+    (plain route), "decode" one token against one layer's slice of the
+    bf16 cache at position seq + meta - 1. The seqpar mLSTM and the
+    expert-parallel MoE run over `mesh`'s entries (its devices `meta`),
+    so the count is the whole mesh's work. Returns {"flops", "bytes"
+    (`pass_bytes`), "coll" (per device, `_layer_collectives`),
+    "saved_bytes" (train: what the graph keeps for the backward between
+    the passes; else 0), "created_bytes" (every storage the pass made)}.
+    """
+    from repro_torch.models import transformer as T
+    cd = compute_dtype
+    lspec = T._segment_spec(cfg, seg.kind, ep, tp)
+    S_tot = seq + (cfg.meta_tokens if seg.kind == "block" else 0)
+    e = torch.empty((), dtype=cd).element_size()
+    n_params = _tree_numel(lspec)
+    width = _matrix_width(cfg, lspec)
+    coll = _layer_collectives(cfg, seg.kind, lspec, mesh=mesh, rules=rules,
+                              batch=batch, seq=S_tot, kind=kind,
+                              moe_impl=moe_impl, ssm_impl=ssm_impl,
+                              remat=remat, e=e,
+                              capacity_factor=capacity_factor)
+    ctx = T.ShardCtx(mesh, rules)
+    if kind == "decode":
+        cspec = layer_cache_spec(cfg, seg, batch, S_tot)
+        cache = _meta(cspec, torch.bfloat16)
+        lp = _meta(lspec, cd)
+        x1 = torch.empty((batch, 1, cfg.d_model), dtype=cd, device="meta")
+
+        def dec():
+            with torch.no_grad():
+                if seg.kind == "block":
+                    return T._block_decode(
+                        cfg, lp, x1, cache, S_tot - 1, window=seg.window,
+                        kernel_impl="ref", capacity_factor=capacity_factor,
+                        moe_impl=moe_impl, mesh=mesh)
+                from repro_torch.models import xlstm as xlstm_lib
+                if seg.kind == "mlstm":
+                    return xlstm_lib.apply_mlstm_block(cfg, lp, x1,
+                                                       cache=cache)
+                return xlstm_lib.apply_slstm_block(cfg, lp, x1, cache=cache)
+        flops, _, created, _ = _count(dec)
+        return {"flops": flops,
+                "bytes": pass_bytes(n_params, width, batch, kind, e,
+                                    cache=_tree_bytes(cspec)),
+                "coll": coll, "saved_bytes": 0, "created_bytes": created}
+
+    train = kind == "train"
+    body = functools.partial(
+        T._layer_forward, cfg, seg, collect_cache=False,
+        kernel_impl="autograd",
+        capacity_factor=capacity_factor, moe_impl=moe_impl, mesh=mesh,
+        ssm_impl=ssm_impl, ctx=ctx)
+    f = T._remat_wrap(body, remat) if train else body
+
+    def count(s_tot):
+        positions = torch.empty((batch, s_tot), dtype=torch.int64,
+                                device="meta")
+        x = torch.empty((batch, s_tot, cfg.d_model), dtype=cd, device="meta")
+        lp = _meta(lspec, cd)
+        if not train:
+            def fwd():
+                with torch.no_grad():
+                    return f(lp, x, positions=positions)[0]
+            flops, _, created, _ = _count(fwd)
+            return flops, 0, created
+        leaves = [t.requires_grad_() for t in P.tree_leaves(lp)]
+        xg = x.requires_grad_()
+
+        def forward():
+            with torch.enable_grad():
+                return f(lp, xg, positions=positions)[0]
+        fwd_flops, saved, created, y = _count(forward)
+        bwd_flops, _, bwd_created, _ = _count(lambda: torch.autograd.grad(
+            y, leaves + [xg], torch.empty_like(y), allow_unused=True))
+        return fwd_flops + bwd_flops, saved, created + bwd_created
+
+    points = _fit_points(seg)
+    if points and S_tot > points[-1]:
+        # the sLSTM's steps: its count evaluated exactly from three short
+        # sequences
+        flops, saved, created = (_extrapolate(points, ys, S_tot) for ys in
+                                 zip(*(count(p) for p in points)))
+    else:
+        flops, saved, created = count(S_tot)
+    return {"flops": flops,
+            "bytes": pass_bytes(n_params, width, batch * S_tot, kind, e,
+                                remat=remat if train else "none"),
+            "coll": coll, "saved_bytes": saved, "created_bytes": created}
+
+
+def _fit_points(seg):
+    """The sequence lengths an sLSTM block's layer is counted at: its
+    plain form loops over the steps in Python, so a long sequence would
+    take minutes on `meta`. Its count is a polynomial of degree 2 in the
+    length (the train backward's sums over the steps grow with them), so
+    three points give it exactly. None for the rest, whose plain forms
+    loop over chunks at most and are counted at their own length."""
+    return (64, 128, 192) if seg.kind == "slstm" else ()
+
+
+def _extrapolate(xs, ys, x) -> float:
+    """The polynomial through (xs, ys) (Lagrange form) at x."""
+    total = 0.0
+    for i, (xi, yi) in enumerate(zip(xs, ys)):
+        w = 1.0
+        for j, xj in enumerate(xs):
+            if j != i:
+                w *= (x - xj) / (xi - xj)
+        total += w * yi
+    return float(total)
 
 
 @dataclasses.dataclass

@@ -35,10 +35,11 @@ grow with it, but admission still checks it. Without `--full` it serves the
 smoke-scale config (vocabulary capped at 256), as the JAX launcher does;
 `--full` serves the published config. It
 runs on CUDA unless `--device cpu` is given, and raises when CUDA is
-missing. Weights are random, drawn from `--seed`, in fp32; the serving
-copy in the compute dtype replaces them leaf by leaf, so the fp32 tree
-and its copy are never held together (qwen2-moe-a2.7b's fp32 parameters
-alone are 57.3 GB).
+missing. Weights are random, drawn from `--seed` straight into the
+serving dtype, bf16 (`models.param.init_params`: each stacked leaf a
+layer at a time in fp32, scaled and rounded), so no fp32 tree is ever
+held: qwen3-moe-30b-a3b's and chameleon-34b's fp32 parameters (122.1 and
+137.2 GB) would not fit one card, their bf16 ones (61.1 and 68.6 GB) do.
 """
 from __future__ import annotations
 
@@ -52,23 +53,8 @@ import torch
 from repro_torch import resolve_device
 
 
-def _to_dtype_in_place(tree, dtype):
-    """Cast every leaf of a params tree to `dtype` inside the tree itself,
-    one leaf at a time, so each fp32 leaf is freed before the next cast."""
-    for key, val in (tree.items() if isinstance(tree, dict)
-                     else enumerate(tree)):
-        if isinstance(val, (dict, list)):
-            _to_dtype_in_place(val, dtype)
-        else:
-            tree[key] = val.to(dtype)
-    return tree
-
-
 def _run_single(args, model, params, pending):
     from repro_torch.serve.kvcache import ServeLoop
-
-    # the loop serves in bf16: its copy replaces the fp32 leaves in place
-    _to_dtype_in_place(params, torch.bfloat16)
 
     loop = ServeLoop(model, params, num_slots=args.num_slots,
                      capacity=args.capacity, max_new=args.max_new)
@@ -185,8 +171,16 @@ def main(argv=None):
                             pending)
     else:
         model = build_model(cfg)
-        params = model.init(seed=args.seed, device=device)
-        report = _run_single(args, model, params, pending)
+        t0 = time.perf_counter()
+        params = model.init(seed=args.seed, dtype=torch.bfloat16,
+                            device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        init_s = time.perf_counter() - t0
+        print(f"initialised {model.num_params():,} parameters in bf16 in "
+              f"{init_s:.2f}s")
+        report = dict(_run_single(args, model, params, pending),
+                      init_s=init_s)
 
     done, dt = report["outputs"], report["seconds"]
     total_tokens = sum(len(v) for v in done.values())

@@ -401,11 +401,39 @@ def mlp_spec(cfg: ModelConfig):
     return {"w_in": Spec((d, f), ("fsdp", "mlp")), "w_down": down}
 
 
+class _Silu(torch.autograd.Function):
+    """`F.silu` whose backward is the formula autograd uses when it
+    records the backward (`infinitely_differentiable_silu_backward`):
+    torch.func transforms always record it, while `torch.autograd.grad`
+    without create_graph would take the fused `silu_backward`, which
+    rounds differently. With it the train step's gradients are the same
+    bit for bit on either engine (`train.train_step.grad_and_value`)."""
+
+    @staticmethod
+    def forward(x):
+        return F.silu(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        sig = torch.sigmoid(x)
+        return grad * sig * (1.0 + x * (1.0 - sig))
+
+
+def silu(x):
+    """SiLU for every model of the port (`_Silu` where grad mode is on)."""
+    return _Silu.apply(x) if torch.is_grad_enabled() else F.silu(x)
+
+
 def apply_mlp(cfg: ModelConfig, p, x):
     """SwiGLU, or GELU with jax.nn.gelu's default tanh approximation."""
     dt = x.dtype
     if cfg.act == "swiglu":
-        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        h = silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
     else:
         h = F.gelu(x @ p["w_in"].to(dt), approximate="tanh")
     return h @ p["w_down"].to(dt)

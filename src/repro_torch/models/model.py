@@ -12,7 +12,8 @@ capacity, as in the JAX package. `build_model(cfg, ep=, tp=)` pads the
 experts and the query heads for a sharded model; `apply` / `prefill` /
 `decode` take the reference's `mesh`, `rules` (through a `ShardCtx`),
 `moe_impl` ("dense" or "ep") and, for the forward and prefill, `ssm_impl`
-("gspmd" or "seqpar"). `param_shardings`, `abstract_params` and
+("gspmd" or "seqpar"); `apply` takes the reference's `remat` ("none",
+"dots" or "full", per layer: `transformer._remat_wrap`). `param_shardings`, `abstract_params` and
 `abstract_cache` give the pspec tuples and the per-entry `meta` blocks of
 the dry run. `init` and `init_cache` default to CUDA and raise when it is
 missing (pass device="cpu" for the CPU).
@@ -26,7 +27,7 @@ from typing import Any
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig
 from repro_torch.models import param as P
 from repro_torch.models import transformer as T
 
@@ -57,14 +58,14 @@ class Model:
     def apply(self, params, inputs, *, compute_dtype=torch.bfloat16,
               kernel_impl: str = "auto", capacity_factor: float = 1.25,
               moe_impl: str = "dense", mesh=None, rules=None,
-              ssm_impl: str = "gspmd"):
+              ssm_impl: str = "gspmd", remat: str = "none"):
         T.check_ported(moe_impl=moe_impl, ssm_impl=ssm_impl)
         logits, aux, _ = T.forward(self.cfg, params, inputs,
                                    compute_dtype=compute_dtype,
                                    kernel_impl=kernel_impl,
                                    capacity_factor=capacity_factor,
                                    ctx=_ctx(mesh, rules), moe_impl=moe_impl,
-                                   mesh=mesh, ssm_impl=ssm_impl)
+                                   mesh=mesh, ssm_impl=ssm_impl, remat=remat)
         return logits, aux
 
     def prefill(self, params, inputs, cap: int, *,
@@ -126,3 +127,45 @@ def build_model(cfg: ModelConfig, *, ep: int = 1, tp: int = 1) -> Model:
     """`ep` pads the MoE experts to a multiple of it, `tp` the query heads
     per KV group (`layers.padded_heads`)."""
     return Model(cfg=cfg, spec=T.build_spec(cfg, ep=ep, tp=tp), ep=ep, tp=tp)
+
+
+# ---------------------------------------------------------------------------
+# Input specs per (arch, shape): `meta` stand-ins for the dry run
+# ---------------------------------------------------------------------------
+def input_specs(cfg: ModelConfig, shape_name: str, mesh=None, rules=None):
+    """`meta` tensors of a cell's inputs, as the reference's
+    `input_specs` gives ShapeDtypeStructs: {"inputs"[, "labels"]} for the
+    train and prefill shapes (int32 tokens (B, S), or bf16 frames (B, S,
+    D) for an embedding frontend), {"token", "cache", "pos"} for decode
+    (one token against a bf16 cache of S + meta positions). Without a
+    mesh the shapes are global; with `mesh` and `rules` each tensor is
+    the block one mesh entry holds (`param.abstract_params`), the cache's
+    "neg_inf" leaves included in bf16, as the reference's specs are."""
+    shape = SHAPES[shape_name]
+    B, S = shape.global_batch, shape.seq_len
+
+    def struct(shp, dtype, axes):
+        spec = P.Spec(tuple(shp), tuple(axes), "zeros")
+        if mesh is None:
+            return torch.empty(spec.shape, dtype=dtype, device="meta")
+        return P.abstract_params(spec, mesh, rules, dtype)
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.embedding_frontend:
+            toks = struct((B, S, cfg.d_model), torch.bfloat16,
+                          ("batch", None, None))
+        else:
+            toks = struct((B, S), torch.int32, ("batch", None))
+        if shape.kind == "train":
+            return {"inputs": toks,
+                    "labels": struct((B, S), torch.int32, ("batch", None))}
+        return {"inputs": toks}
+    cap = S + cfg.meta_tokens
+    model = build_model(cfg, ep=mesh.shape.get("model", 1) if mesh else 1)
+    cache = (model.abstract_cache(B, cap, mesh, rules) if mesh is not None
+             else P.tree_map(lambda s: torch.empty(
+                 s.shape, dtype=torch.bfloat16, device="meta"),
+                 model.cache_spec(B, cap)))
+    return {"token": struct((B, 1), torch.int32, ("batch", None)),
+            "cache": cache,
+            "pos": torch.empty((), dtype=torch.int32, device="meta")}

@@ -17,7 +17,7 @@ Where a port can part from the reference quietly, this one follows it:
     token-major order, so the same pairs drop;
   * a dropped pair adds 0 at slot capacity - 1, as `.at[].add(mode=
     "drop")` does, through an out-of-place `index_put(accumulate=True)`
-    that `torch.func.grad_and_value` differentiates;
+    that autograd differentiates;
   * router logits, softmax and the shared-expert gate are fp32.
 
 `apply_moe_dropless` is the fleet decode's: each token routed as if
@@ -39,9 +39,9 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import silu
 from repro_torch.models.param import Spec
 
 NEG_INF = -1e30
@@ -124,14 +124,14 @@ def _expert_ffn(cfg: ModelConfig, wg, wu, wd, xbuf):
     dt = xbuf.dtype
     g = torch.bmm(xbuf, wg.to(dt))
     u = torch.bmm(xbuf, wu.to(dt))
-    return torch.bmm(F.silu(g) * u, wd.to(dt))
+    return torch.bmm(silu(g) * u, wd.to(dt))
 
 
 def _shared_expert(cfg: ModelConfig, p, x2d):
     dt = x2d.dtype
     g = x2d @ p["shared_wg"].to(dt)
     u = x2d @ p["shared_wu"].to(dt)
-    y = (F.silu(g) * u) @ p["shared_wd"].to(dt)
+    y = (silu(g) * u) @ p["shared_wd"].to(dt)
     gate = torch.sigmoid(x2d.to(F32) @ p["shared_gate"].to(F32))
     return y * gate.to(dt)
 

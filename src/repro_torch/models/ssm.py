@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (re-export)
+from repro_torch.models.layers import silu
 from repro_torch.models.param import Spec
 
 F32 = torch.float32
@@ -100,7 +101,7 @@ def _out(p, y, z):
     yf = y.to(F32)
     y = (yf * torch.rsqrt(yf.pow(2).mean(-1, keepdim=True) + 1e-6)
          * p["out_norm"].to(F32)).to(dt_)
-    return (y * F.silu(z)) @ p["w_out"].to(dt_)
+    return (y * silu(z)) @ p["w_out"].to(dt_)
 
 
 def apply_mamba(cfg: ModelConfig, p, x, *, chunk: int = 64,
@@ -113,7 +114,7 @@ def apply_mamba(cfg: ModelConfig, p, x, *, chunk: int = 64,
     di, H, P = mamba_heads(cfg)
     xin_raw, z = (x @ p["w_in"].to(x.dtype)).chunk(2, dim=-1)
     xin, _ = _causal_conv(xin_raw, p["conv"])
-    xin = F.silu(xin)
+    xin = silu(xin)
     Bm, Cm, dt = _project(cfg, p, xin)
     A = -torch.exp(p["A_log"].to(F32))
     out = ops.ssd(xin.reshape(B, S, H, P), dt, A, Bm, Cm, p["D"],
@@ -145,7 +146,7 @@ def apply_mamba_step(cfg: ModelConfig, p, x, cache):
     di, H, P = mamba_heads(cfg)
     xin, z = (x @ p["w_in"].to(x.dtype)).chunk(2, dim=-1)
     xin, new_conv = _causal_conv(xin, p["conv"], cache=cache["conv"])
-    xin = F.silu(xin)[:, 0]                                  # (B,di)
+    xin = silu(xin)[:, 0]                                  # (B,di)
     Bm, Cm, dt = _project(cfg, p, xin)
     A = -torch.exp(p["A_log"].to(F32))
     y, new_state = ssd_step(xin.reshape(B, H, P), dt, A, Bm, Cm, p["D"],

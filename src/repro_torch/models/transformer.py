@@ -35,9 +35,13 @@ comparisons).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import HYBRID, MOE, SSM, ModelConfig
 from repro_torch.models import layers as L
@@ -339,6 +343,72 @@ def _block_decode(cfg: ModelConfig, p, x, cache, pos, *, window: int,
 
 
 # ---------------------------------------------------------------------------
+# Layer bodies and remat
+# ---------------------------------------------------------------------------
+REMATS = ("none", "dots", "full")
+
+# the matrix products that remat="dots" keeps for the backward, as
+# `jax.checkpoint_policies.checkpoint_dots` keeps the dot_generals
+_DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default,
+                      torch.ops.aten.baddbmm.default))
+
+
+def _layer_forward(cfg: ModelConfig, seg: Segment, lp, x, *, positions,
+                   collect_cache: bool, kernel_impl: str,
+                   capacity_factor: float, moe_impl: str, mesh, ssm_impl: str,
+                   ctx: ShardCtx):
+    """One layer of `seg` on x: (x, cache | None, aux | None), the body
+    the reference scans over the segment's layers."""
+    if seg.kind == "mlstm" and ssm_impl == "seqpar" and mesh is not None:
+        return xlstm_lib.apply_mlstm_block_seqpar(
+            cfg, lp, x, mesh, batch_axes=_batch_axes(mesh),
+            kernel_impl=kernel_impl), None, None
+    if seg.kind == "mlstm":
+        return xlstm_lib.apply_mlstm_block(cfg, lp, x,
+                                           kernel_impl=kernel_impl) + (None,)
+    if seg.kind == "slstm":
+        return xlstm_lib.apply_slstm_block(cfg, lp, x) + (None,)
+    return _block_forward(cfg, lp, x, positions, window=seg.window,
+                          collect_cache=collect_cache,
+                          kernel_impl=kernel_impl,
+                          capacity_factor=capacity_factor, moe_impl=moe_impl,
+                          mesh=mesh, ctx=ctx)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(body, remat: str):
+    """The reference's `_remat_wrap` on one layer's body: "none" keeps
+    every activation the backward needs; "full" keeps only the body's
+    inputs and runs it again in the backward; "dots" keeps the outputs of
+    the matrix products (`_DOT_OPS`) and recomputes the rest. The
+    recompute sees the same inputs and draws no random numbers (the
+    models have no dropout), so it is exact: the MoE route's stable-sort
+    tie order and the EP moves repeat, and the train route's plain forms
+    (`impl="autograd"`) run again. Checkpointing works through saved-
+    tensor hooks, which `torch.func` transforms refuse: differentiate a
+    rematerialised forward with `torch.autograd.grad`
+    (`train.train_step.grad_and_value`)."""
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r}; use one of {REMATS}")
+    if remat == "none":
+        return body
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _dots_policy)
+                  if remat == "dots" else noop_context_fn)
+
+    def wrapped(*args, **kwargs):
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=context_fn,
+                          **kwargs)
+    return wrapped
+
+
+# ---------------------------------------------------------------------------
 # Public model functions
 # ---------------------------------------------------------------------------
 def _embed(cfg: ModelConfig, params, inputs, compute_dtype):
@@ -353,12 +423,13 @@ def forward(cfg: ModelConfig, params, inputs, *,
             compute_dtype=torch.bfloat16, collect_cache: bool = False,
             kernel_impl: str = "auto", capacity_factor: float = 1.25,
             ctx: ShardCtx = NULL_CTX, moe_impl: str = "dense", mesh=None,
-            ssm_impl: str = "gspmd"):
+            ssm_impl: str = "gspmd", remat: str = "none"):
     """Full-sequence forward. inputs: int tokens (B,S), or float embeds
     (B,S,D) when cfg.embedding_frontend. Meta tokens are prepended
     internally and stripped from the logits. With a `mesh`, `moe_impl=
     "ep"` runs the MoE blocks expert-parallel and `ssm_impl="seqpar"` the
-    mLSTM blocks sequence-parallel.
+    mLSTM blocks sequence-parallel. `remat` ("none", "dots", "full")
+    rematerialises each layer's body in the backward (`_remat_wrap`).
     Returns (logits (B,S,V), aux, caches|None); aux is the MoE
     load-balance loss summed over the layers (0 for the other families),
     caches (attention families only: the xLSTM prefill builds
@@ -374,29 +445,19 @@ def forward(cfg: ModelConfig, params, inputs, *,
     S = x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     x = ctx(x, "batch", "seq", None)
-    seqpar = ssm_impl == "seqpar" and mesh is not None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for seg, segp in zip(layer_plan(cfg), params["segments"]):
+        body = _remat_wrap(functools.partial(
+            _layer_forward, cfg, seg, positions=positions,
+            collect_cache=collect_cache, kernel_impl=kernel_impl,
+            capacity_factor=capacity_factor, moe_impl=moe_impl, mesh=mesh,
+            ssm_impl=ssm_impl, ctx=ctx), remat)
         layer_caches = []
         for lp in _layers(segp, seg.count):
-            if seg.kind == "mlstm" and seqpar:
-                x, c = xlstm_lib.apply_mlstm_block_seqpar(
-                    cfg, lp, x, mesh, batch_axes=_batch_axes(mesh),
-                    kernel_impl=kernel_impl), None
-            elif seg.kind == "mlstm":
-                x, c = xlstm_lib.apply_mlstm_block(cfg, lp, x,
-                                                   kernel_impl=kernel_impl)
-            elif seg.kind == "slstm":
-                x, c = xlstm_lib.apply_slstm_block(cfg, lp, x)
-            else:
-                x, c, aux_l = _block_forward(
-                    cfg, lp, x, positions, window=seg.window,
-                    collect_cache=collect_cache, kernel_impl=kernel_impl,
-                    capacity_factor=capacity_factor, moe_impl=moe_impl,
-                    mesh=mesh, ctx=ctx)
-                if aux_l is not None:
-                    aux = aux + aux_l
+            x, c, aux_l = body(lp, x)
+            if aux_l is not None:
+                aux = aux + aux_l
             layer_caches.append(c)
         if collect_cache:
             caches.append(_stack_layers(layer_caches))

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_norm
+from repro_torch.models.layers import apply_norm, silu
 from repro_torch.models.param import Spec, tree_map
 from repro_torch.models.ssm import _causal_conv
 
@@ -190,7 +190,7 @@ def _mlstm_proj(p, ux_raw, conv_cache=None):
     cache: its last W-1 raw inputs)."""
     dt = ux_raw.dtype
     ux, new_conv = _causal_conv(ux_raw, p["conv"], cache=conv_cache)
-    ux = F.silu(ux)
+    ux = silu(ux)
     q = torch.einsum("bse,ehp->bshp", ux, p["wq"].to(dt))
     k = torch.einsum("bse,ehp->bshp", ux, p["wk"].to(dt))
     v = torch.einsum("bse,ehp->bshp", ux, p["wv"].to(dt))
@@ -213,7 +213,7 @@ def _mlstm_out(p, x, h, z):
     """Group norm, output gate, down-projection and residual."""
     B, S, di = z.shape
     dt = x.dtype
-    h = _group_norm(p, h.reshape(B, S, di), dt) * F.silu(z)
+    h = _group_norm(p, h.reshape(B, S, di), dt) * silu(z)
     return x + h @ p["w_down"].to(dt)
 
 
@@ -367,7 +367,7 @@ def _slstm_gates(cfg: ModelConfig, p, x, conv_cache=None):
     dt = x.dtype
     xin = apply_norm(cfg, p["norm"], x)
     xc, new_conv = _causal_conv(xin, p["conv"], cache=conv_cache)
-    xc = F.silu(xc)
+    xc = silu(xc)
     wg = p["w_gates"].to(dt)
     g_if = torch.einsum("bsd,dghp->bsghp", xc, wg[:, :2])
     g_zo = torch.einsum("bsd,dghp->bsghp", xin, wg[:, 2:])
@@ -383,7 +383,7 @@ def _slstm_out(cfg: ModelConfig, p, x, hs):
     x = x + _group_norm(p, hs.reshape(B, S, D).to(dt), dt)
     xin2 = apply_norm(cfg, p["norm"], x)
     f = p["ffn"]
-    hh = F.silu(xin2 @ f["w_gate"].to(dt)) * (xin2 @ f["w_up"].to(dt))
+    hh = silu(xin2 @ f["w_gate"].to(dt)) * (xin2 @ f["w_up"].to(dt))
     return x + hh @ f["w_down"].to(dt)
 
 

@@ -5,8 +5,11 @@ and the AdamW update (`train/optimizer.py`).
 
 The forward differentiates the plain forms through `kernel_impl=
 "autograd"` (`kernels/ops.py`): the JAX step trains through XLA, and no
-hand-written kernel of either package has a backward pass. Gradients come
-from `torch.func.grad_and_value` over the params tree. The update is in
+hand-written kernel of either package has a backward pass. `tcfg.remat`
+rematerialises each layer as the reference's does (`models.transformer.
+_remat_wrap`). Gradients come from `grad_and_value`, `torch.autograd.grad`
+over the params tree: checkpointing works through saved-tensor hooks,
+which the `torch.func` transforms refuse. The update is in
 place, so a step changes the state trees it is given; `make_train_step_
 many` runs its lanes one after another on views of a stacked state, so
 lane j is bit-identical to `make_train_step` run on state j with its
@@ -22,7 +25,7 @@ from repro_torch.configs.base import (ENCODER, ModelConfig, TrainConfig,
                                       check_train_config)
 from repro_torch.kernels.ops import AUTOGRAD
 from repro_torch.models.model import Model
-from repro_torch.models.param import tree_map
+from repro_torch.models.param import tree_leaves, tree_map
 from repro_torch.train import optimizer as opt_lib
 
 AUX_WEIGHT = 0.01
@@ -51,6 +54,27 @@ def softmax_xent(cfg: ModelConfig, logits, labels):
     return ce, z
 
 
+def grad_and_value(loss_fn):
+    """`torch.func.grad_and_value(loss_fn, has_aux=True)` on the
+    autograd engine: returns f(params, batch) -> (grads, (loss, aux)),
+    the gradient of every leaf of `params` in its tree (zeros where the
+    loss does not reach it), the loss and aux detached. The leaves are
+    differentiated through detached aliases, so `params` may be views of
+    a stack that the update then writes in place; grad mode is on inside,
+    whatever the caller's."""
+    def run(params, batch):
+        with torch.enable_grad():
+            ps = tree_map(lambda p: p.detach().requires_grad_(), params)
+            loss, aux = loss_fn(ps, batch)
+            leaves = tree_leaves(ps)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        it = iter(torch.zeros_like(p) if g is None else g
+                  for p, g in zip(leaves, grads))
+        return (tree_map(lambda _: next(it), ps),
+                (loss.detach(), tree_map(torch.Tensor.detach, aux)))
+    return run
+
+
 def make_loss_fn(model: Model, tcfg: TrainConfig, *, mesh=None, rules=None,
                  moe_impl: str = "dense", distill_weight: float = 0.0,
                  ssm_impl: str = "gspmd"):
@@ -72,7 +96,7 @@ def make_loss_fn(model: Model, tcfg: TrainConfig, *, mesh=None, rules=None,
                                   compute_dtype=compute_dtype,
                                   kernel_impl=AUTOGRAD, mesh=mesh,
                                   rules=rules, moe_impl=moe_impl,
-                                  ssm_impl=ssm_impl)
+                                  ssm_impl=ssm_impl, remat=tcfg.remat)
         if cfg.family == ENCODER or not cfg.causal:
             lab, lg = batch["labels"], logits
         else:
@@ -101,7 +125,7 @@ def make_train_step(model: Model, tcfg: TrainConfig, *, mesh=None,
     loss_fn = make_loss_fn(model, tcfg, mesh=mesh, rules=rules,
                            moe_impl=moe_impl, distill_weight=distill_weight,
                            ssm_impl=ssm_impl)
-    value_and_grads = torch.func.grad_and_value(loss_fn, has_aux=True)
+    value_and_grads = grad_and_value(loss_fn)
     k = tcfg.microbatches
 
     def grads_of(params, batch):

@@ -297,7 +297,8 @@ def test_init_scales_in_place_to_the_formulas_values(arch):
     """`init` scales each truncated-normal draw in place (the largest leaf
     is never held twice); a seed still gives, leaf for leaf and bit for
     bit, `(trunc_normal * std).to(dtype)` drawn in the spec's leaf order,
-    and bf16 parameters are the fp32 ones rounded."""
+    a stacked leaf (leading "layers" axis) one layer at a time, and bf16
+    parameters are the fp32 ones rounded."""
     import math
     from repro_torch.models import param as P
     tm = build_model(dataclasses.replace(smoke_config(arch),
@@ -311,7 +312,11 @@ def test_init_scales_in_place_to_the_formulas_values(arch):
                       else math.prod(s.shape[:-1]))
             std = (s.scale / max(1.0, math.sqrt(fan_in))
                    if s.init == "normal" else s.scale * 0.02)
-            want = P._trunc_normal(s.shape, gen) * std
+            if s.axes[:1] == ("layers",):
+                want = torch.stack([P._trunc_normal(s.shape[1:], gen) * std
+                                    for _ in range(s.shape[0])])
+            else:
+                want = P._trunc_normal(s.shape, gen) * std
         else:
             want = P._init_leaf(s, gen, torch.float32)
         assert torch.equal(g, want), s

@@ -13,8 +13,8 @@ optimized HLO converts between dtypes in that compile
 XLA's CPU backend has no bf16 arithmetic, converts bf16 operands to f32
 and back around every op, and counts each convert as a FLOP. The port
 does no such converts. Measured at smoke width, port / (reference less
-converts): eval 0.991, prefill 0.990, train fp32 0.977, train bf16
-0.951 (14.6 M converts), decode 1.012 (0.37 M converts, the bf16
+converts): eval 0.988, prefill 0.988, train fp32 0.976, train bf16
+0.9501 (14.6 M converts), decode 0.961 (0.37 M converts, the bf16
 cache). The bf16 train count is also held within 5 % of the
 reference's fp32 count.
 """
@@ -91,7 +91,7 @@ def test_bytes_follow_the_stated_formula(table):
     from repro_torch.launch.roofline import _matrix_width
     from repro_torch.models.model import build_model
     model = build_model(CFG)
-    n, width, t = model.num_params(), _matrix_width(model.spec), 2 * 16
+    n, width, t = model.num_params(), _matrix_width(CFG, model.spec), 2 * 16
     assert table.cost(CFG, batch=2, seq=16, kind="eval").bytes == \
         4 * n + 4 * width * t + 4 * t
     assert table.cost(CFG, batch=2, seq=16, kind="eval",
@@ -162,11 +162,9 @@ def test_flops_match_the_reference_cost_table(kind, prec, table, jtable):
 
 
 # the new families' counts against the reference's, fp32, smoke width,
-# port / (reference less converts): eval and prefill 0.978-0.989, train
-# 0.950 (starcoder2-3b: XLA counts the tanh GELU's polynomial as several
-# elementwise ops, the port one per element) to 0.985; decode, not held
-# here, 1.010 (qwen2-moe), 1.035 (starcoder2), 1.053 (qwen3-moe: its
-# qk-norm's small reductions)
+# port / (reference less converts): eval and prefill 0.984-0.993, train
+# 0.968 (starcoder2-3b) to 0.984; decode, not held here, 0.961-0.983
+# (copies count no FLOPs; the tanh GELU counts its formula's operations)
 @pytest.mark.parametrize("kind", ["eval", "prefill", "train"])
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
                                   "starcoder2-3b"])

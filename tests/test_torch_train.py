@@ -117,8 +117,8 @@ def test_train_config_matches_jax_and_refuses_unported_fields():
         asdict(JTrainConfig(**ENGINE_TCFG))
     m = build_model(dataclasses.replace(smoke_config("olmo-1b"),
                                         vocab_size=VOCAB))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tts.make_train_step(m, TrainConfig())           # remat="full"
+    assert TrainConfig().remat == "full"
+    assert callable(tts.make_train_step(m, TrainConfig()))   # remat ported
     with pytest.raises(NotImplementedError,
                        match="read by no train step of the reference"):
         tts.make_train_step(m, TrainConfig(remat="none",
