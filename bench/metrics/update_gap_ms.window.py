@@ -1,0 +1,2 @@
+"""update_gap_ms.window: see bench/core/program.py."""
+from bench.core.program import update_gap_ms as read  # noqa: F401

@@ -63,6 +63,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import trainer as _trainer
 from repro_torch.core.allocator import AllocationTrace, ECCOAllocator
@@ -466,6 +467,11 @@ class ECCOController:
                 self._restore(snap, mesh)
 
     def _run_window_inner(self) -> WindowMetrics:
+        with tracing.span("ecco.window"):
+            return self._window_steps()
+
+    def _window_steps(self) -> WindowMetrics:
+        """Steps 1-6 of one window, each under its own span."""
         cc = self.cc
         t = self.t
         meter = self._window_meter()   # None = the unmetered path
@@ -474,28 +480,31 @@ class ECCOController:
         # 1. live data + drift detection -> retraining requests. Sampling
         # stays per-stream (each stream owns its rng); scoring is ONE
         # batched fleet call
-        window_data: Dict[str, np.ndarray] = {}
-        assigned = self._jobs_by_stream()
-        ids = [s.stream_id for s in self.streams]
-        if self.streams:
-            toks_all = np.stack([s.sample(t, cc.sample_rate, cc.seq_len)
-                                 for s in self.streams])
-            window_data = dict(zip(ids, toks_all))
-            triggered = set(self.fleet.observe(ids, toks_all))
-        else:
-            triggered = set()
-        for s in self.streams:
-            if (assigned.get(s.stream_id) is None
-                    and s.stream_id in triggered):
-                sub = s.sample(t, cc.eval_batch, cc.seq_len)
-                req = Request(stream_id=s.stream_id, t=t, loc=s.loc,
-                              subsamples=sub, acc=0.0,
-                              train_data=window_data[s.stream_id],
-                              sig=self.fleet.hist(s.stream_id))
-                self.request_time.setdefault(s.stream_id, t)
-                self.grouper.group_request(self.jobs, req)
-        self._barrier()
+        with tracing.span("ecco.window.drift"):
+            window_data: Dict[str, np.ndarray] = {}
+            assigned = self._jobs_by_stream()
+            ids = [s.stream_id for s in self.streams]
+            if self.streams:
+                toks_all = np.stack([s.sample(t, cc.sample_rate, cc.seq_len)
+                                     for s in self.streams])
+                window_data = dict(zip(ids, toks_all))
+                triggered = set(self.fleet.observe(ids, toks_all))
+            else:
+                triggered = set()
+            for s in self.streams:
+                if (assigned.get(s.stream_id) is None
+                        and s.stream_id in triggered):
+                    sub = s.sample(t, cc.eval_batch, cc.seq_len)
+                    req = Request(stream_id=s.stream_id, t=t, loc=s.loc,
+                                  subsamples=sub, acc=0.0,
+                                  train_data=window_data[s.stream_id],
+                                  sig=self.fleet.hist(s.stream_id))
+                    self.request_time.setdefault(s.stream_id, t)
+                    self.grouper.group_request(self.jobs, req)
+            self._barrier()
 
+        # steps 2-5 run when the window starts with jobs
+        has_jobs = bool(self.jobs)
         # 2. GPU shares estimate -> transmission control (GAIMD). The
         # plane warm-starts every flow's GAIMD rate from the state it
         # persisted at the end of the previous window and short-circuits
@@ -503,113 +512,122 @@ class ECCOController:
         shares: Dict[str, float] = {}
         bw: Dict[str, float] = {}
         delivered: Dict[str, int] = {}
-        if self.jobs:
-            p = self.allocator.estimate_shares(self.jobs)
-            members = [m for j in self.jobs for m in j.members]
-            jobs_of = [j for j in self.jobs for _ in j.members]
-            flows = [m.stream_id for m in members]
-            fshare = [p[j.job_id] for j in jobs_of]
-            fn = [j.num_members for j in jobs_of]
-            caps = [(cc.local_caps or {}).get(sid, np.inf)
-                    for sid in flows]
-            rates = self.tx_plane.allocate(flows, fshare, fn, caps,
-                                           cc.shared_bandwidth,
-                                           mode=self.bandwidth_mode)
-            bw = dict(zip(flows, map(float, rates)))
-            shares = p
-            # 3. §3.2 camera-side decisions for the whole fleet in ONE
-            # batched call; a zero-bandwidth camera delivers nothing
-            batch = self.tx_plane.decide_many(
-                budget_levels=self.tx_plane.levels_for_shares(fshare),
-                token_budgets=self._token_budgets(fshare),
-                p_shares=fshare, n_members=fn, achieved_bw=rates,
-                window_seconds=cc.window_seconds)
-            for i, (j, m) in enumerate(zip(jobs_of, members)):
-                toks = window_data.get(m.stream_id)
-                if toks is None:
-                    continue
-                res = int(batch.resolution[i])
-                # sequence subsampling: whole sequences within the
-                # delivered-token allowance, bounded by what the stream
-                # sampled this window
-                n_seq = int(batch.delivered[i]) // res if res else 0
-                if (n_seq == 0 and res and batch.delivered[i] > 0
-                        and int(batch.deliverable[i]) >= res):
-                    # a group larger than the config rate gives each
-                    # member a fractional f*/n_j share; quantize UP to
-                    # one whole sequence when the achieved bandwidth
-                    # can carry it
-                    n_seq = 1
-                sl = toks[:n_seq]
-                delivered[m.stream_id] = int(sl.shape[0]) * res
-                if sl.shape[0] == 0:
-                    continue
-                j.ingest(sl, m.stream_id)
+        with tracing.span("ecco.window.transmit"):
+            if has_jobs:
+                p = self.allocator.estimate_shares(self.jobs)
+                members = [m for j in self.jobs for m in j.members]
+                jobs_of = [j for j in self.jobs for _ in j.members]
+                flows = [m.stream_id for m in members]
+                fshare = [p[j.job_id] for j in jobs_of]
+                fn = [j.num_members for j in jobs_of]
+                caps = [(cc.local_caps or {}).get(sid, np.inf)
+                        for sid in flows]
+                rates = self.tx_plane.allocate(flows, fshare, fn, caps,
+                                               cc.shared_bandwidth,
+                                               mode=self.bandwidth_mode)
+                bw = dict(zip(flows, map(float, rates)))
+                shares = p
+                # 3. §3.2 camera-side decisions for the whole fleet in ONE
+                # batched call; a zero-bandwidth camera delivers nothing
+                batch = self.tx_plane.decide_many(
+                    budget_levels=self.tx_plane.levels_for_shares(fshare),
+                    token_budgets=self._token_budgets(fshare),
+                    p_shares=fshare, n_members=fn, achieved_bw=rates,
+                    window_seconds=cc.window_seconds)
+                for i, (j, m) in enumerate(zip(jobs_of, members)):
+                    toks = window_data.get(m.stream_id)
+                    if toks is None:
+                        continue
+                    res = int(batch.resolution[i])
+                    # sequence subsampling: whole sequences within the
+                    # delivered-token allowance, bounded by what the
+                    # stream sampled this window
+                    n_seq = int(batch.delivered[i]) // res if res else 0
+                    if (n_seq == 0 and res and batch.delivered[i] > 0
+                            and int(batch.deliverable[i]) >= res):
+                        # a group larger than the config rate gives each
+                        # member a fractional f*/n_j share; quantize UP to
+                        # one whole sequence when the achieved bandwidth
+                        # can carry it
+                        n_seq = 1
+                    sl = toks[:n_seq]
+                    delivered[m.stream_id] = int(sl.shape[0]) * res
+                    if sl.shape[0] == 0:
+                        continue
+                    j.ingest(sl, m.stream_id)
 
-            # 4. the allocator runs the retraining window (Alg. 1), under
-            # the elastic barrier (one health check per micro-window), the
-            # straggler quota policy and the window deadline, all no-ops
-            # when unset. With a roofline budget the window's eval / serve
-            # co-tenants are charged FIRST and the allocator maximizes
-            # gain per metered cost over the remainder
-            if meter is not None:
-                self._reserve_overheads(meter)
-            alloc_trace = self.allocator.run_window(
-                self.jobs, cc.window_micro, stragglers=self.stragglers,
-                deadline=cc.window_deadline,
-                barrier=(self.elastic.barrier if self.elastic is not None
-                         else None),
-                meter=meter)
+        # 4. the allocator runs the retraining window (Alg. 1), under the
+        # elastic barrier (one health check per micro-window), the
+        # straggler quota policy and the window deadline, all no-ops when
+        # unset. With a roofline budget the window's eval / serve
+        # co-tenants are charged FIRST and the allocator maximizes gain
+        # per metered cost over the remainder
+        with tracing.span("ecco.window.alloc"):
+            if has_jobs:
+                if meter is not None:
+                    self._reserve_overheads(meter)
+                alloc_trace = self.allocator.run_window(
+                    self.jobs, cc.window_micro, stragglers=self.stragglers,
+                    deadline=cc.window_deadline,
+                    barrier=(self.elastic.barrier
+                             if self.elastic is not None else None),
+                    meter=meter)
 
-            # 5. periodic regrouping (Alg. 2 UpdateGrouping), evaluated
-            # on each member's RECENT window data, with the drift
-            # signatures refreshed on the Request and in the index
-            members = [m for j in self.jobs for m in j.members
-                       if window_data.get(m.stream_id) is not None]
-            if members:
-                sigs = batch_token_histogram(
-                    np.stack([window_data[m.stream_id] for m in members]),
-                    self.fleet.buckets, self.fleet.vocab)
-                for m, sig in zip(members, sigs):
-                    m.subsamples = window_data[m.stream_id]
-                    m.sig = sig
-                    self.sig_index.refresh_sig(m.stream_id, m.sig)
-            self.grouper.update_grouping(self.jobs, t)
+        # 5. periodic regrouping (Alg. 2 UpdateGrouping), evaluated on each
+        # member's RECENT window data, with the drift signatures refreshed
+        # on the Request and in the index
+        with tracing.span("ecco.window.regroup"):
+            if has_jobs:
+                members = [m for j in self.jobs for m in j.members
+                           if window_data.get(m.stream_id) is not None]
+                if members:
+                    sigs = batch_token_histogram(
+                        np.stack([window_data[m.stream_id]
+                                  for m in members]),
+                        self.fleet.buckets, self.fleet.vocab)
+                    for m, sig in zip(members, sigs):
+                        m.subsamples = window_data[m.stream_id]
+                        m.sig = sig
+                        self.sig_index.refresh_sig(m.stream_id, m.sig)
+                self.grouper.update_grouping(self.jobs, t)
 
         # metrics: eval samples stay per-stream draws (fleet order),
         # scored in one batched call per engine
-        acc = {}
-        by_stream = self._jobs_by_stream()
-        evs = {}
-        for s in self.streams:
-            evs[s.stream_id] = s.sample(t + 0.5, cc.eval_batch, cc.seq_len)
-        grouped = [s.stream_id for s in self.streams
-                   if by_stream.get(s.stream_id) is not None]
-        gjobs = [by_stream[sid] for sid in grouped]
-        vals: List[float] = [0.0] * len(gjobs)
-        for grp_eng, idxs in engine_groups(gjobs):
-            if grp_eng is None:
-                # fleetlint: disable=per-member-loop -- documented
-                # scalar fallback for probe-rejected jobs; bit-identical
-                # to the batched dispatch
-                for i in idxs:
-                    vals[i] = gjobs[i].eval_on(evs[grouped[i]])
-            else:
-                sub = grp_eng.eval_pairs(
-                    [(gjobs[i], evs[grouped[i]]) for i in idxs])
-                for i, a in zip(idxs, sub):
-                    vals[i] = a
-        got = dict(zip(grouped, vals))
-        for s in self.streams:
-            acc[s.stream_id] = got.get(s.stream_id, float("nan"))
+        with tracing.span("ecco.window.metrics"):
+            acc = {}
+            by_stream = self._jobs_by_stream()
+            evs = {}
+            for s in self.streams:
+                evs[s.stream_id] = s.sample(t + 0.5, cc.eval_batch,
+                                            cc.seq_len)
+            grouped = [s.stream_id for s in self.streams
+                       if by_stream.get(s.stream_id) is not None]
+            gjobs = [by_stream[sid] for sid in grouped]
+            vals: List[float] = [0.0] * len(gjobs)
+            for grp_eng, idxs in engine_groups(gjobs):
+                if grp_eng is None:
+                    # fleetlint: disable=per-member-loop -- documented
+                    # scalar fallback for probe-rejected jobs;
+                    # bit-identical to the batched dispatch
+                    for i in idxs:
+                        vals[i] = gjobs[i].eval_on(evs[grouped[i]])
+                else:
+                    sub = grp_eng.eval_pairs(
+                        [(gjobs[i], evs[grouped[i]]) for i in idxs])
+                    for i, a in zip(idxs, sub):
+                        vals[i] = a
+            got = dict(zip(grouped, vals))
+            for s in self.streams:
+                acc[s.stream_id] = got.get(s.stream_id, float("nan"))
 
         # 6. live serving plane (off by default): validated hot swap of
         # each group's serving snapshot, then this window's stream queries
         # answered from the committed snapshots. Uses only data drawn
         # above (window_data prompts, evs gate sets): no rng, no decision
-        serve_report = None
-        if self.serve_plane is not None:
-            serve_report = self._serve_window(window_data, evs)
+        with tracing.span("ecco.window.serve"):
+            serve_report = None
+            if self.serve_plane is not None:
+                serve_report = self._serve_window(window_data, evs)
 
         groups = {j.job_id: [m.stream_id for m in j.members]
                   for j in self.jobs}

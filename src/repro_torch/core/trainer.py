@@ -59,7 +59,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.batching import job_precision
 from repro_torch.core.grouping import Request
@@ -870,13 +870,15 @@ class SharedEngine:
         """(rows, S-1) fp32 next-token hits of a forward at the eval
         precision: params cast to its dtype (a no-op on the bank's
         cast-at-flush compute stack), argmax in fp32."""
-        cd = _PRECISION_DTYPE[precision]
-        if cd != F32:
-            params = tree_map(lambda x: x.to(cd) if x.is_floating_point()
-                              else x, params)
-        logits, _ = self.model.apply(params, toks, compute_dtype=cd)
-        pred = torch.argmax(logits[:, :-1].to(F32), dim=-1)
-        return (pred == toks[:, 1:]).to(F32)
+        with tracing.span("ecco.eval", rows=toks.shape[0],
+                          precision=precision):
+            cd = _PRECISION_DTYPE[precision]
+            if cd != F32:
+                params = tree_map(lambda x: x.to(cd)
+                                  if x.is_floating_point() else x, params)
+            logits, _ = self.model.apply(params, toks, compute_dtype=cd)
+            pred = torch.argmax(logits[:, :-1].to(F32), dim=-1)
+            return (pred == toks[:, 1:]).to(F32)
 
     def accuracy(self, params, tokens, *, precision: str = "fp32") -> float:
         """Top-1 next-token accuracy — the mAP analogue. `precision`
@@ -1068,19 +1070,20 @@ class SharedEngine:
         metric a (micro_steps,) tensor on the device (no host sync); jobs
         with an empty pool are absent.
         """
-        self.bank.compact()     # BEFORE capturing any slot index
-        out: Dict[str, Dict[str, torch.Tensor]] = {}
-        for job in jobs:
-            data = job.pool.rows()
-            if data.shape[0] == 0:
-                continue                       # train_micro no-ops
-            k = min(job.batch, data.shape[0])
-            toks = np.stack(
-                [data[job.rng.integers(0, data.shape[0], size=k)]
-                 for _ in range(job.micro_steps)])
-            job.gpu_time += 1
-            out[job.job_id] = self._train_job_scalar(job, toks)
-        return out
+        with tracing.span("ecco.train.micro", jobs=len(jobs)):
+            self.bank.compact()     # BEFORE capturing any slot index
+            out: Dict[str, Dict[str, torch.Tensor]] = {}
+            for job in jobs:
+                data = job.pool.rows()
+                if data.shape[0] == 0:
+                    continue                       # train_micro no-ops
+                k = min(job.batch, data.shape[0])
+                toks = np.stack(
+                    [data[job.rng.integers(0, data.shape[0], size=k)]
+                     for _ in range(job.micro_steps)])
+                job.gpu_time += 1
+                out[job.job_id] = self._train_job_scalar(job, toks)
+            return out
 
 
 def _stack_steps(mets: List[Dict[str, torch.Tensor]]):

@@ -40,6 +40,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.rows import RowRegistry
 from repro_torch.models.param import tree_leaves, tree_map
 from repro_torch.serve.kvcache import ServeLoop
@@ -211,13 +212,14 @@ class FleetServePlane(ServeLoop):
         self.swap_rejected = 0
         self.staleness: Dict[str, int] = {}
         # run-lifetime tick log for pooled latency percentiles: (lanes,
-        # seconds) per tick, the lanes the tick really decoded
+        # seconds) per tick, the lanes the tick really decoded; the last
+        # `_window_ticks` entries are this window's
         self.tick_log: List[Tuple[int, float]] = []
         self.prefill_calls = 0       # batched prefills, run-lifetime
         self._last_lanes = 0
         # per-window accumulators (reset by window_report)
         self._gate_log: List[GateDecision] = []
-        self._tick_times: List[float] = []
+        self._window_ticks = 0
         self._queries = 0
         self._tokens = 0
         self._ticks = 0
@@ -262,7 +264,12 @@ class FleetServePlane(ServeLoop):
             if not st.done and st.group == group_id:
                 self._retire(i)
         if self._queue:
-            kept = [q for q in self._queue if q[1] != group_id]
+            kept = []
+            for q in self._queue:
+                if q[1] == group_id:
+                    tracing.end("ecco.query.queue", q[0], dropped=True)
+                else:
+                    kept.append(q)
             self._dropped += len(self._queue) - len(kept)
             self._queue = deque(kept)
         self.store.remove(group_id)
@@ -284,6 +291,7 @@ class FleetServePlane(ServeLoop):
         prompt = np.asarray(prompt)
         self.mgr.check_fit(prompt.shape[-1], self.max_new)
         self._queue.append((request_id, group_id, prompt))
+        tracing.begin("ecco.query.queue", request_id)
 
     def _prefill_group(self, group_id: str, prompts: np.ndarray):
         tok, cache, pos = self._prefill(
@@ -301,7 +309,8 @@ class FleetServePlane(ServeLoop):
         prompt = np.asarray(prompt)
         slot = self.mgr.admit(request_id, prompt_len=prompt.shape[-1],
                               max_new=self.max_new, group=group)
-        toks, cache, pos = self._prefill_group(group, prompt[None])
+        with tracing.span("ecco.prefill", rids=[request_id]):
+            toks, cache, pos = self._prefill_group(group, prompt[None])
         self.mgr.write_prefill(slot, cache, int(pos))
         self._queries += 1
         self._record_first(request_id, slot, toks[0])
@@ -313,27 +322,35 @@ class FleetServePlane(ServeLoop):
         free = len(self.mgr.free_slots())
         if not free or not self._queue:
             return
+        queued = len(self._queue)
         take: List[Tuple[str, str, np.ndarray]] = []
         while self._queue and len(take) < free:
             rid, gid, prompt = self._queue.popleft()
             if gid not in self.store:
+                tracing.end("ecco.query.queue", rid, dropped=True)
                 self._dropped += 1
                 continue
+            tracing.end("ecco.query.queue", rid)
             take.append((rid, gid, prompt))
+        if not take:
+            return
         buckets: Dict[Tuple[str, int], List[Tuple[str, str, np.ndarray]]] = {}
         for item in take:
             buckets.setdefault((item[1], item[2].shape[-1]),
                                []).append(item)
-        for (gid, slen), items in buckets.items():
-            toks, cache, pos = self._prefill_group(
-                gid, np.stack([p for _, _, p in items]))
-            slots = [self.mgr.admit(rid, prompt_len=slen,
-                                    max_new=self.max_new, group=gid)
-                     for rid, _, _ in items]
-            self.mgr.write_prefill_many(slots, cache, int(pos))
-            self._queries += len(items)
-            for (rid, _, _), slot, t in zip(items, slots, toks):
-                self._record_first(rid, slot, t)
+        with tracing.span("ecco.admit", queued=queued, admitted=len(take)):
+            for (gid, slen), items in buckets.items():
+                rids = [rid for rid, _, _ in items]
+                with tracing.span("ecco.prefill", rids=rids):
+                    toks, cache, pos = self._prefill_group(
+                        gid, np.stack([p for _, _, p in items]))
+                slots = [self.mgr.admit(rid, prompt_len=slen,
+                                        max_new=self.max_new, group=gid)
+                         for rid in rids]
+                self.mgr.write_prefill_many(slots, cache, int(pos))
+                self._queries += len(items)
+                for rid, slot, t in zip(rids, slots, toks):
+                    self._record_first(rid, slot, t)
 
     def tick(self) -> Dict[str, int]:
         """One decode step for every active slot in one fleet-step call:
@@ -342,16 +359,18 @@ class FleetServePlane(ServeLoop):
         act = self.mgr.active()
         if not act:
             return {}
-        slots = [self.mgr.slots[i] for i in act]
-        nxt, _ = self._fleet_decode(
-            self.store.compute_stack(),
-            [self.store.reg[st.group] for st in slots],
-            [self._new_tokens[i] for i in act], self.mgr.cache,
-            [st.pos for st in slots], slots=act)
+        with tracing.span("ecco.tick", lanes=len(act)):
+            slots = [self.mgr.slots[i] for i in act]
+            nxt, _ = self._fleet_decode(
+                self.store.compute_stack(),
+                [self.store.reg[st.group] for st in slots],
+                [self._new_tokens[i] for i in act], self.mgr.cache,
+                [st.pos for st in slots], slots=act)
+            nxt = nxt.tolist()
         self.decode_calls += 1
         self._last_lanes = len(act)
         emitted: Dict[str, int] = {}
-        for i, t in zip(act, nxt.tolist()):
+        for i, t in zip(act, nxt):
             emitted[self._emit(i, t)] = t
         self._ticks += 1
         self._tokens += len(act)
@@ -376,9 +395,9 @@ class FleetServePlane(ServeLoop):
                 continue
             t0 = time.perf_counter()
             self.tick()
-            dt = time.perf_counter() - t0
-            self._tick_times.append(dt)
-            self.tick_log.append((self._last_lanes, dt))
+            self.tick_log.append((self._last_lanes,
+                                  time.perf_counter() - t0))
+            self._window_ticks += 1
             ran += 1
         self._serve_seconds += time.perf_counter() - t_start
         return ran
@@ -387,7 +406,8 @@ class FleetServePlane(ServeLoop):
     def window_report(self) -> Dict:
         """Per-window serving metrics; resets the window accumulators
         (swap counters stay cumulative, mirroring the JAX plane's)."""
-        tt = np.asarray(self._tick_times, np.float64)
+        first = max(0, len(self.tick_log) - self._window_ticks)
+        tt = np.asarray([dt for _, dt in self.tick_log[first:]], np.float64)
         rep = {
             "queries": self._queries,
             "tokens": self._tokens,
@@ -408,7 +428,7 @@ class FleetServePlane(ServeLoop):
             "gate": [dataclasses.asdict(d) for d in self._gate_log],
         }
         self._gate_log = []
-        self._tick_times = []
+        self._window_ticks = 0
         self._queries = self._tokens = self._ticks = 0
         self._dropped = 0
         self._serve_seconds = 0.0

@@ -12,6 +12,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import HYBRID, MOE
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -166,16 +167,18 @@ def fleet_decode_logits(model: Model, params_stack, rows, tokens, cache, pos,
 
     x = _cat([L.embed_tokens(gp["embed"], tok[a:b, None], compute_dtype)
               for gp, (_, a, b) in zip(group_params, spans)])
-    for si, seg in enumerate(plan):
-        segc = cache["segments"][si]
-        for li in range(seg.count):
-            lc = T._layer(segc, li)
-            lps = [lp[si][li] for lp in layer_params]
-            if seg.kind == "block":
-                x = _fleet_block(cfg, lps, spans, sel, x, lc, ln,
-                                 window=seg.window)
-            else:
-                x = _fleet_recurrent(cfg, seg.kind, lps, spans, sel, x, lc)
+    with tracing.span("ecco.tick.layers"):
+        for si, seg in enumerate(plan):
+            segc = cache["segments"][si]
+            for li in range(seg.count):
+                lc = T._layer(segc, li)
+                lps = [lp[si][li] for lp in layer_params]
+                if seg.kind == "block":
+                    x = _fleet_block(cfg, lps, spans, sel, x, lc, ln,
+                                     window=seg.window)
+                else:
+                    x = _fleet_recurrent(cfg, seg.kind, lps, spans, sel, x,
+                                         lc)
     logits = _cat([
         L.unembed(cfg, gp["embed"],
                   L.apply_norm(cfg, gp["final_norm"], x[a:b]))

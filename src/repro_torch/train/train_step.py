@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import (ENCODER, ModelConfig, TrainConfig,
                                       check_train_config)
 from repro_torch.kernels.ops import AUTOGRAD
@@ -146,9 +147,11 @@ def make_train_step(model: Model, tcfg: TrainConfig, *, mesh=None,
         return loss_sum / k, met, tree_map(lambda g: g / k, acc)
 
     def train_step(state, batch):
-        loss, met, grads = grads_of(state["params"], batch)
-        _, _, omet = opt_lib.adamw_update(tcfg, state["params"], grads,
-                                          state["opt"])
+        with tracing.span("ecco.train.grads"):
+            loss, met, grads = grads_of(state["params"], batch)
+        with tracing.span("ecco.train.update", device=True):
+            _, _, omet = opt_lib.adamw_update(tcfg, state["params"], grads,
+                                              state["opt"])
         return state, {"loss": loss, **met, **omet}
 
     return train_step
