@@ -277,11 +277,13 @@ def attention_windowed(cfg: ModelConfig, p, x, positions, *, window: int,
 class Lanes(NamedTuple):
     """Where each lane of a per-lane decode lives: `pos` (A,) int64, each
     lane's absolute position; `slots` (A,) int64, each lane's batch row of
-    the cache; `lengths` (N,) int32 over the cache's N rows, pos + 1 at a
-    lane's row and 0 elsewhere, the keys each row of a global layer
-    attends to. Made once per decode call (`lanes`)."""
+    the cache, or None where lane a is row a of a cache of A rows (the
+    fleet step's pool-wide layout, global layers only); `lengths` (N,)
+    int32 over the cache's N rows, pos + 1 at a lane's row and 0 elsewhere,
+    the keys each row of a global layer attends to. Made once per decode
+    call (`lanes`, or the pool-wide step's own)."""
     pos: torch.Tensor
-    slots: torch.Tensor
+    slots: Optional[torch.Tensor]
     lengths: torch.Tensor
 
 
@@ -352,8 +354,9 @@ def decode_attend(q, k, v, cache, ln: Lanes, *, window: int, meta: int,
                   kernel_impl: str = "auto"):
     """The attention of a per-lane decode, after the projections: write
     each lane's new K/V row (q, k, v: (A,1,H|K,hd), RoPE applied) into its
-    cache row `ln.slots[a]` at its own position `ln.pos[a]` (slot
-    pos % wcap of a ring), one indexed write per leaf, and attend.
+    cache row `ln.slots[a]` (row a where `ln.slots` is None, and then no
+    row of q is gathered or scattered) at its own position `ln.pos[a]`
+    (slot pos % wcap of a ring), one indexed write per leaf, and attend.
 
     A global layer makes ONE attention call over the whole cache, each row
     with its own `ln.lengths` (rows that hold no lane see no key and their
@@ -362,6 +365,12 @@ def decode_attend(q, k, v, cache, ln: Lanes, *, window: int, meta: int,
     mask built from its own position. Returns o (A,1,H,hd) in q.dtype."""
     pos, slots = ln.pos, ln.slots
     ck, cv = cache["k"], cache["v"]
+    if window <= 0 and slots is None:
+        at = pos.view(-1, 1, 1, 1).expand(-1, 1, *ck.shape[2:])
+        ck.scatter_(1, at, k.to(ck.dtype))
+        cv.scatter_(1, at, v.to(cv.dtype))
+        return ops.attention(q, ck, cv, causal=True, lengths=ln.lengths,
+                             impl=kernel_impl)
     if window <= 0:
         ck[slots, pos] = k[:, 0].to(ck.dtype)
         cv[slots, pos] = v[:, 0].to(cv.dtype)

@@ -10,7 +10,10 @@ mix of groups decode together: every tick is one call of the fleet decode
 step over all active slots, each lane with its own params row and its own
 position (`serve_step.make_fleet_decode_step`: one `flash_attention`
 launch per global-attention layer per tick), and admission batches
-prefills per (group, prompt length).
+prefills per (group, prompt length). For the dense attention families the
+step decodes the whole pool against every live serving row, and on the
+card replays it as CUDA graphs; `graph_ticks`, `eager_ticks` and
+`graph_captures` count how often.
 
 A freshly retrained model is not what serves next by default: `publish`
 runs an update-validation gate (EdgeSync, PAPERS.md). The candidate must
@@ -27,8 +30,11 @@ Two differences from the JAX plane, neither of which moves a token:
     deterministic, so the decode reads the same values; the gate scores
     the fp32 row.
   * lanes are not padded to a shape grid (`_pad_size` bounds XLA's
-    compilations, which PyTorch does not have): prefills and ticks run
-    on the real lane count, which `tick_log` records.
+    compilations): prefills run on the real lane count. A tick of a
+    family the fleet step decodes pool-wide (`serve_step.pool_wide`)
+    pads instead to the whole pool, whose fixed shapes the card's CUDA
+    graphs need; the other families' ticks run on the real lane count.
+    `tick_log` records the lanes a tick really served either way.
 """
 from __future__ import annotations
 
@@ -212,10 +218,17 @@ class FleetServePlane(ServeLoop):
         self.swap_rejected = 0
         self.staleness: Dict[str, int] = {}
         # run-lifetime tick log for pooled latency percentiles: (lanes,
-        # seconds) per tick, the lanes the tick really decoded; the last
-        # `_window_ticks` entries are this window's
+        # seconds) per tick, the lanes the tick served (not the pool a
+        # pool-wide tick decodes); the last `_window_ticks` entries are
+        # this window's
         self.tick_log: List[Tuple[int, float]] = []
         self.prefill_calls = 0       # batched prefills, run-lifetime
+        # ticks that replayed the fleet step's CUDA graphs, ticks run op by
+        # op (the CPU, the grouped families, a capture's own tick), and
+        # the sets of graphs captured; run-lifetime
+        self.graph_ticks = 0
+        self.eager_ticks = 0
+        self.graph_captures = 0
         self._last_lanes = 0
         # per-window accumulators (reset by window_report)
         self._gate_log: List[GateDecision] = []
@@ -355,19 +368,30 @@ class FleetServePlane(ServeLoop):
     def tick(self) -> Dict[str, int]:
         """One decode step for every active slot in one fleet-step call:
         lanes carry their own params row and position, so mixed groups
-        and staggered admissions share the tick."""
+        and staggered admissions share the tick. Every live serving row
+        is computed, whether or not a lane reads it this tick, so that the
+        step's shapes change only when the store does."""
         act = self.mgr.active()
         if not act:
             return {}
+        step = self._fleet_decode
+        captures = step.captures
         with tracing.span("ecco.tick", lanes=len(act)):
             slots = [self.mgr.slots[i] for i in act]
-            nxt, _ = self._fleet_decode(
+            nxt, _ = step(
                 self.store.compute_stack(),
                 [self.store.reg[st.group] for st in slots],
                 [self._new_tokens[i] for i in act], self.mgr.cache,
-                [st.pos for st in slots], slots=act)
+                [st.pos for st in slots], slots=act,
+                groups=range(len(self.store)))
             nxt = nxt.tolist()
+            tracing.annotate(graphed=step.graphed)
         self.decode_calls += 1
+        if step.graphed:
+            self.graph_ticks += 1
+        else:
+            self.eager_ticks += 1
+        self.graph_captures += step.captures - captures
         self._last_lanes = len(act)
         emitted: Dict[str, int] = {}
         for i, t in zip(act, nxt):

@@ -18,7 +18,8 @@ read only in `collect()`, so that no span makes the host wait; where CUDA
 is not initialised it falls back to the host clock. `begin` / `end` record
 a span that opens in one call and closes in another, keyed by a request
 id (a query's wait in the queue): they enter no `record_function`, since
-the host is not inside them.
+the host is not inside them. `annotate` adds attributes to the innermost
+open span, for what is known only inside it.
 
 Spans stay in memory until `collect()` returns and clears them. The record
 is one per process, as the profiler is; the port drives it from one
@@ -57,7 +58,7 @@ class _Null:
 _NULL = _Null()
 _on = False
 _ids = itertools.count(1)
-_stack: List[int] = []                  # ids of the open spans
+_stack: List["_Live"] = []              # the open spans, innermost last
 _done: list = []                        # (Span fields, CUDA events or None)
 _open: Dict[tuple, tuple] = {}          # (name, key) -> (start, attrs)
 
@@ -86,9 +87,9 @@ class _Live:
         self.name, self.device, self.attrs = name, device, attrs
 
     def __enter__(self):
-        self.parent = _stack[-1] if _stack else None
+        self.parent = _stack[-1].id if _stack else None
         self.id = next(_ids)
-        _stack.append(self.id)
+        _stack.append(self)
         self.ev = None
         if self.device and torch.cuda.is_initialized():
             self.ev = (torch.cuda.Event(enable_timing=True),
@@ -115,6 +116,14 @@ def span(name: str, device: bool = False, **attrs):
     if not _on:
         return _NULL
     return _Live(name, device, attrs)
+
+
+def annotate(**attrs):
+    """Adds `attrs` to the innermost open span, for what is known only
+    inside it (whether a tick replayed graphs); nothing while tracing is
+    off or no span is open."""
+    if _on and _stack:
+        _stack[-1].attrs.update(attrs)
 
 
 def begin(name: str, key, **attrs):

@@ -208,30 +208,43 @@ def test_fleet_step_matches_jax(fleet, precision):
         assert decided >= len(ROWS) * TICKS // 2, decided
 
 
-@pytest.mark.parametrize("precision", ["fp32", "bf16"])
-def test_fleet_tick_equals_each_slot_alone(fleet, precision):
+# lanes of the pool: all seven (slots 4 and 7 of 9 hold none); or the
+# lanes of rows 0 and 2 only, with row 1 still computed (the plane passes
+# every live serving row), a live group no lane reads
+LANES = {"all": list(range(len(ROWS))),
+         "idle-group": [a for a, r in enumerate(ROWS) if r != 1]}
+
+
+@pytest.mark.parametrize("precision,lanes", [
+    pytest.param(p, la, id=p if la == "all" else f"{p}-{la}")
+    for la in LANES for p in ("fp32", "bf16")])
+def test_fleet_tick_equals_each_slot_alone(fleet, precision, lanes):
     """The port's step over a pool larger than its lanes (lanes in a
-    permuted subset of the slots, the plane's call) against each lane
-    decoded alone by `make_decode_step` on its own row, TICKS ticks on
-    each side's own tokens: equal in fp32; in bf16 equal wherever the
-    solo top-1 leads by more than 1e-2, until the first nearer tie."""
+    permuted subset of the slots, the plane's call, every group of the
+    stack computed) against each lane decoded alone by `make_decode_step`
+    on its own row, TICKS ticks on each side's own tokens: equal in fp32;
+    in bf16 equal wherever the solo top-1 leads by more than 1e-2, until
+    the first nearer tie."""
     arch, jm, jps, jstack, tm, tstack = fleet
     tdt = DT[precision][1]
     tstack = tree_map(lambda t: t.to(tdt), tstack)
     one, toks0, poss0 = _pool(fleet, precision)
-    slots = [5, 0, 3, 6, 2, 8, 1]                # lanes' rows of the pool
+    lane = LANES[lanes]
+    rows = [ROWS[a] for a in lane]
+    slots = [[5, 0, 3, 6, 2, 8, 1][a] for a in lane]   # lanes' pool rows
     pool = tm.init_cache(9, CAP + tm.cfg.meta_tokens, tdt, "cpu")
     for dst, src in zip(tree_leaves(pool), tree_leaves(one)):
-        dst[:, slots] = src
+        dst[:, slots] = src[:, lane]
     step = make_fleet_decode_step(tm, compute_dtype=tdt)
-    toks, poss = list(toks0), list(poss0)
+    toks, poss = [toks0[a] for a in lane], [poss0[a] for a in lane]
     fleet_out = []
     for _ in range(TICKS):
-        nxt, _ = step(tstack, ROWS, toks, pool, poss, slots=slots)
+        nxt, _ = step(tstack, rows, toks, pool, poss, slots=slots,
+                      groups=range(3))
         fleet_out.append(nxt.tolist())
         toks, poss = nxt.tolist(), [p + 1 for p in poss]
     compared = 0
-    for a, r in enumerate(ROWS):
+    for i, (a, r) in enumerate(zip(lane, rows)):
         params = tree_map(lambda t, r=r: t[r], tstack)
         cache = tree_map(lambda t, a=a: t[:, a:a + 1].clone(), one)
         tok, pos = toks0[a], poss0[a]
@@ -242,14 +255,14 @@ def test_fleet_tick_equals_each_slot_alone(fleet, precision):
             nxt = int(lg.argmax())
             if precision == "bf16" and _lead(lg.numpy()) <= LEAD:
                 break
-            assert fleet_out[tick][a] == nxt, (arch, a, tick)
+            assert fleet_out[tick][i] == nxt, (arch, a, tick)
             compared += 1
             tok, pos = nxt, pos + 1
         else:
             continue
-    assert compared >= len(ROWS) * TICKS // 2, compared
+    assert compared >= len(lane) * TICKS // 2, compared
     if precision == "fp32":
-        assert compared == len(ROWS) * TICKS
+        assert compared == len(lane) * TICKS
 
 
 def test_fleet_step_through_decode_step_per_lane_positions(fleet):

@@ -118,7 +118,8 @@ def _check_lead(got, top, gaps, where):
 
 def test_tick_log_records_the_real_lanes(engine):
     """The JAX plane pads lanes to a shape grid (`_pad_size`) to bound
-    XLA's compilations; the port decodes the real lanes and logs them."""
+    XLA's compilations; the port's tick log records the real lanes, also
+    where the tick decodes the whole pool (olmo's pool-wide step)."""
     plane = FleetServePlane(engine, ServeConfig(num_slots=8, capacity=32,
                                                 max_new=3))
     plane.publish("g0", _params(engine, 0), np.stack(_prompts(2, 16)))
