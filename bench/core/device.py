@@ -2,8 +2,11 @@
 no JAX in the process, and the card's name and power limit."""
 from __future__ import annotations
 
+import dataclasses
 import subprocess
 import sys
+import types
+import typing
 from typing import List
 
 import torch
@@ -53,13 +56,26 @@ def card() -> dict:
 def model_config(cfg: dict):
     """The port's ModelConfig from a configuration file: its keys that are
     ModelConfig fields (the file's other keys say where the numbers come
-    from)."""
-    import dataclasses
-    from repro_torch.configs.base import ModelConfig, SSMConfig
-    fields = {f.name for f in dataclasses.fields(ModelConfig)}
-    kw = {k: v for k, v in cfg.items() if k in fields}
-    if kw.get("ssm"):
-        kw["ssm"] = SSMConfig(**kw["ssm"])
-    if "global_attn_layers" in kw:
-        kw["global_attn_layers"] = tuple(kw["global_attn_layers"])
-    return ModelConfig(**kw)
+    from), each as its field's type asks (`typed`)."""
+    from repro_torch.configs.base import ModelConfig
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    return typed(ModelConfig, {k: v for k, v in cfg.items() if k in names})
+
+
+def typed(hint, value):
+    """A value read from JSON as the type `hint` asks: a dict as the
+    dataclass it names (each field in turn, by the dataclass's own type
+    hints, so that a sub-configuration the port adds needs no word here),
+    a list as a tuple where it names a tuple; else the value itself."""
+    if value is None:
+        return None
+    origin, args = typing.get_origin(hint), typing.get_args(hint)
+    if origin in (typing.Union, types.UnionType):          # Optional[X]
+        return typed(next(a for a in args if a is not type(None)), value)
+    if dataclasses.is_dataclass(hint) and isinstance(value, dict):
+        hints = typing.get_type_hints(hint)
+        return hint(**{k: typed(hints.get(k), v) for k, v in value.items()})
+    if origin is tuple and isinstance(value, list):
+        return tuple(typed(args[0] if args[1:] == (...,) else args[i], v)
+                     for i, v in enumerate(value))
+    return value

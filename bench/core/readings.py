@@ -3,10 +3,11 @@ of which names one of these for its metric. Each returns None where the
 run holds nothing to read."""
 from __future__ import annotations
 
+import functools
 import math
 import statistics
 
-from bench.core import trace as T
+from bench.core import spec
 from bench.core import yardstick as Y
 
 
@@ -101,40 +102,28 @@ def tick_ms(run):
     return 1e3 * statistics.median(t for _, t in run.ticks)
 
 
-def attn_roofline_pct(run):
-    """Every flash_attention launch of the profiled stretch: the bound on
-    its work (from its own shapes) summed, over the device time of the
-    attention kernels."""
+def roofline_pct(run, kernel: str):
+    """Every launch of `kernel` (`bench/kernels/<kernel>.py`) in the
+    profiled stretch: the bound on its work, from its own shapes, summed,
+    over the device time of the kernel's device functions."""
     st = run.stretch
-    if st is None or not st.attention or run.peaks is None:
+    if st is None or not st.launches.get(kernel) or run.peaks is None:
         return None
-    n, dev_s = st.device_s(T.ATTN_KERNELS)
+    k = spec.kernel(kernel)
+    n, dev_s = st.device_s(k.DEVICE_NAMES)
     if not dev_s:
         return None
     pk = run.peaks
     bound = 0.0
-    for c in st.attention:
-        keys = None if c.lengths is None else int(c.lengths.sum())
-        nbytes, flops = Y.attention_cost(c.q_shape, c.k_shape, c.q_bytes,
-                                         c.kv_bytes, causal=c.causal,
-                                         keys=keys)
-        peak = pk["fp32"] if c.q_bytes == 4 else pk["bf16"]
+    for rec in st.launches[kernel]:
+        nbytes, flops, peak = k.cost(rec, pk)
         bound += Y.bound_s(nbytes, flops, peak, pk["bytes"])
     return 100.0 * bound / dev_s
 
 
-def ssd_roofline_pct(run):
-    """The same for the ssd_scan launches (bf16 tensor cores' peak)."""
-    st = run.stretch
-    if st is None or not st.ssd or run.peaks is None:
-        return None
-    n, dev_s = st.device_s(T.SSD_KERNELS)
-    if not dev_s:
-        return None
-    pk = run.peaks
-    bound = sum(Y.bound_s(*Y.ssd_cost(*c), pk["bf16"], pk["bytes"])
-                for c in st.ssd)
-    return 100.0 * bound / dev_s
+def roofline(kernel: str):
+    """`read(run)` of `kernel`'s roofline share, for a metric file."""
+    return functools.partial(roofline_pct, kernel=kernel)
 
 
 def idle_pct(run):

@@ -3,8 +3,12 @@ cell; the cell names its configuration (`bench/configs/<name>.json`) and
 its traffic mix (`bench/traffic/<name>.json`); a cell may add parameters
 of its own (`bench/cells/<name>.json`, such as the open loop's rate, found
 once per configuration); each metric is read by `bench/metrics/<name>.py`.
-A new cell, configuration, mix or metric is a new file and a new entry;
-no file here changes for it.
+A configuration's model family (its `family` key) has its plain
+reference and its operation counts in
+`bench/reference/families/<family>.py`; each hand-written kernel whose launches the
+traced stretch records is `bench/kernels/<name>.py`. A new cell,
+configuration, mix, metric, model family or kernel is new files and new
+entries; no file here changes for it.
 """
 from __future__ import annotations
 
@@ -12,6 +16,8 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -76,15 +82,53 @@ def cell(name: str, root: str = ROOT, bench: Optional[dict] = None) -> Cell:
                 traffic, metrics_of(bench), root)
 
 
+_loaded: Dict[str, ModuleType] = {}
+
+
+def _module(kind: str, name: str, root: str) -> ModuleType:
+    """`bench/<kind>/<name>.py`, loaded by its path (once a process)."""
+    path = os.path.join(root, "bench", kind, name + ".py")
+    if path not in _loaded:
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no {path}: {kind} {name!r} has no "
+                                    f"file of its own")
+        label = re.sub(r"\W", "_", f"bench_{kind}_{name}")
+        spec = importlib.util.spec_from_file_location(label, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _loaded[path] = mod
+    return _loaded[path]
+
+
 def reader(metric: str, root: str = ROOT) -> Callable:
     """`read(run)` of `bench/metrics/<metric>.py`: the metric's number from
     a finished run, or None where the run holds nothing to read."""
-    path = os.path.join(root, "bench", "metrics", metric + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + metric.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _module("metrics", metric, root).read
+
+
+def family(cfg: dict, root: str = ROOT) -> ModuleType:
+    """`bench/reference/families/<family>.py` of a configuration:
+    `hidden(cfg, params, tokens, quant)`, its operation counts
+    (`matmul_params`, `forward_flops`, `decode_flops`) and, where it
+    defines one, its own `logits`."""
+    return _module(os.path.join("reference", "families"), cfg["family"],
+                   root)
+
+
+def kernel(name: str, root: str = ROOT) -> ModuleType:
+    """`bench/kernels/<name>.py`: the port's op it wraps (`TARGET`,
+    `module:attribute`), the device functions it launches
+    (`DEVICE_NAMES`), a launch's record from the op's arguments
+    (`record(args, kwargs)`) and its cost (`cost(record, peaks)`:
+    bytes, operations and the peak of the units doing them)."""
+    return _module("kernels", name, root)
+
+
+def kernels(root: str = ROOT) -> Dict[str, ModuleType]:
+    """Every kernel file, by name."""
+    here = os.path.join(root, "bench", "kernels")
+    return {f[:-3]: kernel(f[:-3], root) for f in sorted(os.listdir(here))
+            if f.endswith(".py")}
 
 
 def read_metrics(c: Cell, run, *, trace: bool) -> Dict[str, dict]:

@@ -1,7 +1,7 @@
 """The traced stretch of a `--trace 1` run: torch.profiler over a part of
 the measured window, the benchmark's own spans around the program's
-layers, and the launch shapes of the hand-written kernels. Nothing here is
-switched on in a `--trace 0` run.
+layers, and the launches of the hand-written kernels, one file each under
+`bench/kernels/`. Nothing here is switched on in a `--trace 0` run.
 
 The profiler has dropped the first launches of a session on the card
 (PERF.md), so a stretch opens with a warm-up step that it discards, as
@@ -12,29 +12,13 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import importlib
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
-# the device kernels of the port's attention and SSD scan, by the names
-# their CUDA sources give them
-ATTN_KERNELS = ("attn_fwd_kernel", "attn_prefill_kernel",
-                "attn_decode_split_kernel", "attn_decode_combine_kernel")
-SSD_KERNELS = ("ssd_scan_kernel", "ssd_state_kernel", "ssd_walk_kernel",
-               "ssd_out_kernel")
-
-
-@dataclasses.dataclass
-class Call:
-    """One launch of a hand-written kernel, recorded by the wrapper the
-    benchmark puts around the op."""
-    q_shape: Tuple[int, ...]
-    k_shape: Tuple[int, ...]
-    q_bytes: int
-    kv_bytes: int
-    causal: bool
-    lengths: Optional[torch.Tensor]   # a decode's per-lane key lengths
+from bench.core import spec
 
 
 @dataclasses.dataclass
@@ -46,8 +30,8 @@ class Stretch:
         default_factory=dict)          # name -> (launches, device seconds)
     idle_gaps: List[Tuple[str, float]] = dataclasses.field(
         default_factory=list)
-    attention: List[Call] = dataclasses.field(default_factory=list)
-    ssd: List[tuple] = dataclasses.field(default_factory=list)
+    # kernel file's name -> each launch's record (`bench/kernels/<name>.py`)
+    launches: Dict[str, list] = dataclasses.field(default_factory=dict)
     flops: float = 0.0                 # model FLOPs the stretch did
 
     def device_s(self, names) -> Tuple[int, float]:
@@ -60,40 +44,32 @@ class Stretch:
 
 
 class Recorder:
-    """Wraps the port's kernel entry points (`kernels.ops._flash`,
-    `kernels.ops._ssd`) and records each launch's shapes while `on`."""
+    """Wraps the port's op of each kernel file (`bench/kernels/<name>.py`,
+    its `TARGET`) and records each launch (its `record(args, kwargs)`)
+    under the file's name while `on`."""
 
     def __init__(self):
         self.on = False
-        self.attention: List[Call] = []
-        self.ssd: List[tuple] = []
+        self.launches: Dict[str, list] = collections.defaultdict(list)
         self._undo = []
 
     def install(self):
-        from repro_torch.kernels import ops
-        flash, ssd = ops._flash, ops._ssd
+        for name, k in spec.kernels().items():
+            where, attr = k.TARGET.split(":")
+            mod = importlib.import_module(where)
+            op = getattr(mod, attr)
+            setattr(mod, attr, self._recorded(name, k.record, op))
+            self._undo.append(lambda m=mod, a=attr, f=op: setattr(m, a, f))
 
-        def rec_flash(q, k, v, *, causal=True, window=0, lengths=None):
+    def _recorded(self, name, record, op):
+        def recorded(*args, **kwargs):
             if self.on:
-                self.attention.append(Call(
-                    tuple(q.shape), tuple(k.shape), q.element_size(),
-                    k.element_size(), causal, lengths))
-            return flash(q, k, v, causal=causal, window=window,
-                         lengths=lengths)
-
-        def rec_ssd(x, dt, A, Bm, Cm, D, *, chunk=128, return_state=False):
-            if self.on:
-                B, S, H, P = x.shape
-                self.ssd.append((B, S, H, P, Bm.shape[-1], chunk))
-            return ssd(x, dt, A, Bm, Cm, D, chunk=chunk,
-                       return_state=return_state)
-
-        ops._flash, ops._ssd = rec_flash, rec_ssd
-        self._undo.append(lambda: (setattr(ops, "_flash", flash),
-                                   setattr(ops, "_ssd", ssd)))
+                self.launches[name].append(record(args, kwargs))
+            return op(*args, **kwargs)
+        return recorded
 
     def uninstall(self):
-        for f in self._undo:
+        for f in reversed(self._undo):
             f()
         self._undo.clear()
 
@@ -192,12 +168,11 @@ class Profile:
         self.wall = time.perf_counter() - self.t0
         self.rec.on = False
         self.prof.__exit__(None, None, None)
-        self.calls = (list(self.rec.attention), list(self.rec.ssd))
-        self.rec.attention.clear()
-        self.rec.ssd.clear()
+        self.launches = dict(self.rec.launches)
+        self.rec.launches.clear()
 
     def result(self) -> "Stretch":
-        return read(self.prof, self.wall, self.calls, self.flops)
+        return read(self.prof, self.wall, self.launches, self.flops)
 
 
 def _kernel(e) -> bool:
@@ -209,7 +184,8 @@ def _kernel(e) -> bool:
             and not e.name.startswith(("bench.", "ProfilerStep")))
 
 
-def read(prof, wall: float, calls, flops: float) -> Stretch:
+def read(prof, wall: float, launches: Dict[str, list],
+         flops: float) -> Stretch:
     """Busy time, kernel sums and the longest idle gaps of a profile."""
     events = prof.events()
     dev, host = [], []
@@ -243,7 +219,7 @@ def read(prof, wall: float, calls, flops: float) -> Stretch:
     return Stretch(wall_s=wall, busy_s=busy / 1e6,
                    kernels={k: (v[0], v[1]) for k, v in kernels.items()},
                    idle_gaps=sorted(by_host.items(), key=lambda x: -x[1]),
-                   attention=calls[0], ssd=calls[1], flops=flops)
+                   launches=launches, flops=flops)
 
 
 def breakdown(st: Stretch) -> dict:

@@ -13,7 +13,11 @@ vocabulary. Two loops:
   from `gap_seed`, scaled to fill the window exactly) that each run's seed
   puts in another order, so every run offers the same load. The driver
   enqueues every query that has come due, then pumps the plane one tick,
-  and records how late it enqueued.
+  and records how late it enqueued. With `"arrivals": "group-bursts"`
+  the same loop sends cameras of one group together: each camera falls
+  due once a period (`sum(groups) / rate` seconds), a group's cameras in
+  bursts of at most `burst`, the bursts spread evenly over the period in
+  the order of `groups`, and the seed orders the cameras within a burst.
 * closed: every camera sends its next query when its last one completes,
   so `sum(groups)` queries stand against `slots` slots.
 
@@ -84,6 +88,25 @@ class Traffic:
         gaps *= seconds / gaps.sum()
         gaps = np.random.default_rng(_seed(seed, 11)).permutation(gaps)
         return np.concatenate([[0.0], np.cumsum(gaps)[:-1]])
+
+    def bursts(self, seconds: float, seed: int) -> List[tuple]:
+        """(due, camera) of the open loop in group bursts, in due order:
+        the same bursts for every seed, each burst's cameras in the seed's
+        order."""
+        groups = [int(n) for n in self.tr["groups"]]
+        size = int(self.tr["burst"])
+        period = sum(groups) / float(self.tr["rate"])
+        first = np.concatenate([[0], np.cumsum(groups)[:-1]])
+        bursts = [(int(first[g]) + a, min(n - a, size))
+                  for g, n in enumerate(groups) for a in range(0, n, size)]
+        rng = np.random.default_rng(_seed(seed, 17))
+        out = []
+        for k in range(int(math.ceil(seconds / period))):
+            for j, (cam, n) in enumerate(bursts):
+                due = (k + j / len(bursts)) * period
+                if due < seconds:
+                    out += [(due, cam + int(c)) for c in rng.permutation(n)]
+        return out
 
 
 class Harness:
@@ -163,11 +186,17 @@ def group_seed(seed: int, g: int) -> int:
 
 
 def warm(h: Harness, traffic: Traffic):
-    """Every shape the window uses, once: a batched prefill per group and
-    decode ticks until the plane drains."""
+    """Every shape the window uses, once: a batched prefill per group (of
+    a whole burst where the loop sends bursts) and decode ticks until the
+    plane drains."""
+    bursts = traffic.tr.get("arrivals") == "group-bursts"
     for g, gid in enumerate(h.groups):
-        for i in range(2):
+        n = min(int(traffic.tr["groups"][g]), int(traffic.tr["burst"])) \
+            if bursts else 2
+        for i in range(n):
             h.plane.enqueue(f"warm{g}.{i}", gid, traffic.prompt(g))
+        if bursts:
+            h.plane.pump()
     h.plane.pump()
     h.plane.drain()
     h.plane.window_report()
@@ -225,6 +254,8 @@ def _window(h: Harness, traffic: Traffic, seconds: float, seed: int,
     pending: List[tuple] = []               # (due, camera) not yet sent
     if closed:
         pending = [(0.0, int(c)) for c in cam_rng.permutation(ncam)]
+    elif tr.get("arrivals") == "group-bursts":
+        pending = traffic.bursts(seconds, seed)
     else:
         pending = [(float(t), int(cam_rng.integers(ncam)))
                    for t in traffic.schedule(seconds, seed)]

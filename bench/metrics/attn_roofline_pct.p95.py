@@ -1,2 +1,4 @@
-"""attn_roofline_pct.p95: see bench/core/readings.py."""
-from bench.core.readings import attn_roofline_pct as read  # noqa: F401
+"""attn_roofline_pct.p95: flash_attention's roofline share (bench/core/readings.py)."""
+from bench.core.readings import roofline
+
+read = roofline("flash_attention")

@@ -1,2 +1,4 @@
-"""attn_roofline_pct.window: see bench/core/readings.py."""
-from bench.core.readings import attn_roofline_pct as read  # noqa: F401
+"""attn_roofline_pct.window: flash_attention's roofline share (bench/core/readings.py)."""
+from bench.core.readings import roofline
+
+read = roofline("flash_attention")

@@ -1,2 +1,4 @@
-"""ssd_roofline_pct.p95: see bench/core/readings.py."""
-from bench.core.readings import ssd_roofline_pct as read  # noqa: F401
+"""ssd_roofline_pct.p95: ssd_scan's roofline share (bench/core/readings.py)."""
+from bench.core.readings import roofline
+
+read = roofline("ssd_scan")

@@ -6,7 +6,7 @@ than the first) and the queries still queued or in flight at the close.
 Run once when a cell is defined; the cell's file then holds 0.8 of the
 highest rate sustained. Not run by the benchmark's runs.
 
-    python3 bench/sweep.py --workload olmo-1b.query --rates 20,30,40 --seconds 20
+    python3 bench/sweep.py --workload olmo-1b.query-burst --rates 32,40,48,56 --seconds 20
 """
 from __future__ import annotations
 

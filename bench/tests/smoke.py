@@ -1,8 +1,11 @@
 """Cells at smoke width for the CPU tests: the same drivers, configs cut to
-two layers of width 64, a handful of cameras and slots."""
+two layers of width 64, a handful of cameras and slots. A configuration's
+sizes at smoke width, and a cell's own traffic parameters, are
+`smoke/<name>.json`; the smoke traffic of each kind of mix is `TRAFFIC`."""
 from __future__ import annotations
 
 import copy
+import json
 import os
 import sys
 
@@ -14,45 +17,59 @@ for p in (ROOT, os.path.join(ROOT, "src")):
 
 from bench.core import spec  # noqa: E402
 
-TINY = {
-    "olmo-1b": dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
-                    d_ff=128, vocab_size=256),
-    "olmo-1b-vocab8": dict(num_layers=2, d_model=64, num_heads=4,
-                           num_kv_heads=4, d_ff=128, vocab_size=200),
-    "hymba-1.5b": dict(num_layers=3, d_model=64, num_heads=4,
-                       num_kv_heads=2, d_ff=96, vocab_size=256,
-                       sliding_window=16, global_attn_layers=[0, 2],
-                       meta_tokens=4,
-                       ssm={"state_dim": 8, "conv_width": 4, "expand": 2}),
-}
+SMOKE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke")
+
 TRAFFIC = {
     "serve": dict(groups=[3, 2, 2], slots=4, max_new=4, check_queries=12,
                   trace_seconds=0.5, drain_seconds=30),
     "retrain": dict(scenario_seeds=[0, 1]),
 }
-CELL = {"olmo-1b.query": dict(prompt_len=20, rate=6.0),
-        "hymba-1.5b.query": dict(prompt_len=24, rate=4.0),
-        "olmo-1b.query-flood": dict(prompt_len=20),
-        "olmo-1b.retrain": dict()}
 PEAKS = {"bytes": 3.35e12, "bf16": 989e12, "fp32": 67e12}
-# a cell whose files the benchmark keeps but which BENCHMARK.json does not
-# run (PERF.md, open questions): laid into it here, so that its driver,
+# cells whose files the benchmark keeps but which BENCHMARK.json does not
+# run (PERF.md, open questions): laid into it here, so that their driver,
 # reference and limits stay tested
 HELD = {"configs": [{"name": "hymba-1.5b",
                      "file": "bench/configs/hymba-1.5b.json"}],
         "workloads": [{"name": "hymba-1.5b.query", "config": "hymba-1.5b",
+                       "traffic": "stream-query-open", "chips": 1},
+                      {"name": "olmo-1b.query", "config": "olmo-1b",
                        "traffic": "stream-query-open", "chips": 1}]}
 
 
-def cell(name: str) -> spec.Cell:
-    """The cell of BENCHMARK.json at smoke width, its limits loose."""
+def _bench() -> dict:
+    """BENCHMARK.json with the held-out cell laid in."""
     bench = spec.load_benchmark()
     for key, held in HELD.items():
         have = {x["name"] for x in bench[key]}
         bench[key] = bench[key] + [x for x in held if x["name"] not in have]
-    c = copy.deepcopy(spec.cell(name, bench=bench))
-    c.config.update(TINY[c.config_name])
+    return bench
+
+
+def sizes(name: str) -> dict:
+    """`smoke/<name>.json` of a configuration (its sizes cut to smoke
+    width) or of a cell (its traffic's own parameters at smoke width)."""
+    with open(os.path.join(SMOKE, name + ".json")) as f:
+        return json.load(f)
+
+
+def configs() -> list:
+    """The configurations, held-out ones too, that have a smoke file."""
+    return [c["name"] for c in _bench()["configs"]
+            if os.path.exists(os.path.join(SMOKE, c["name"] + ".json"))]
+
+
+def config(name: str) -> dict:
+    """The configuration file `name` at smoke width."""
+    entry = [c for c in _bench()["configs"] if c["name"] == name][0]
+    with open(os.path.join(ROOT, entry["file"])) as f:
+        return dict(json.load(f), **sizes(name))
+
+
+def cell(name: str) -> spec.Cell:
+    """The cell of BENCHMARK.json at smoke width, its limits loose."""
+    c = copy.deepcopy(spec.cell(name, bench=_bench()))
+    c.config.update(sizes(c.config_name))
     c.traffic.update(TRAFFIC[c.traffic["kind"]])
-    c.traffic.update(CELL[name])
+    c.traffic.update(sizes(name))
     c.traffic["limits"] = {k: 1e9 for k in c.traffic.get("limits", {})}
     return c

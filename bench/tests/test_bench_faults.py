@@ -38,7 +38,8 @@ def _names(run):
 
 
 @pytest.mark.parametrize("cell", ["olmo-1b.query", "hymba-1.5b.query",
-                                  "olmo-1b.query-flood"])
+                                  "olmo-1b.query-flood",
+                                  "olmo-1b.query-burst"])
 def test_sound_serving_run_is_correct(cell):
     run = _serve(cell)
     assert run.correct, _names(run)
@@ -52,7 +53,7 @@ def test_a_served_token_altered_where_it_is_produced(monkeypatch):
     def altered(self, slot, token):
         return emit(self, slot, (token + 1) % self.model.cfg.vocab_size)
     monkeypatch.setattr(ServeLoop, "_emit", altered)
-    run = _serve("olmo-1b.query")
+    run = _serve("olmo-1b.query-burst")
     assert not run.correct, _names(run)
 
 
@@ -70,7 +71,7 @@ def test_the_decode_leaving_its_cache_unchanged(monkeypatch):
             cache[n].copy_(t)
         return out
     monkeypatch.setattr(L, "decode_attend", stale)
-    run = _serve("olmo-1b.query")
+    run = _serve("olmo-1b.query-burst")
     assert not run.correct, _names(run)
 
 

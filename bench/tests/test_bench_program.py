@@ -55,7 +55,7 @@ def ev(name, a, b, dev=CPU, note=False) -> Ev:
 KERNELS = [ev("k1", 0, 10, CUDA), ev("k2", 20, 30, CUDA),
            ev("k3", 25, 35, CUDA), ev("k4", 50, 60, CUDA),
            ev("k5", 100, 110, CUDA)]
-BENCH_HOST = [ev("bench.train", 0, 120)]
+HOST_SPANS = [ev("bench.train", 0, 120)]
 PROGRAM = [ev("ecco.train.micro", 5, 115), ev("ecco.train.grads", 5, 45),
            ev("ecco.train.update", 45, 110),
            # two prefills overlap the first gap: counted once for the name
@@ -66,7 +66,7 @@ PROGRAM = [ev("ecco.train.micro", 5, 115), ev("ecco.train.grads", 5, 45),
 
 
 def test_gaps_go_to_every_enclosing_program_span():
-    gaps, counts = P.gaps(KERNELS + BENCH_HOST + PROGRAM)
+    gaps, counts = P.gaps(KERNELS + HOST_SPANS + PROGRAM)
     assert gaps == pytest.approx({"ecco.train.micro": 65e-6,
                                   "ecco.train.grads": 25e-6,
                                   "ecco.train.update": 40e-6,
@@ -76,15 +76,15 @@ def test_gaps_go_to_every_enclosing_program_span():
 
 
 def _read(events) -> Tuple[float, dict, list]:
-    st = T.read(Prof(events), 1.0, ([], []), 0.0)
+    st = T.read(Prof(events), 1.0, {}, 0.0)
     return st.busy_s, st.kernels, st.idle_gaps
 
 
 def test_the_stretch_reads_the_same_with_or_without_program_spans():
-    without = _read(KERNELS + BENCH_HOST)
-    assert _read(KERNELS + BENCH_HOST + PROGRAM) == without
+    without = _read(KERNELS + HOST_SPANS)
+    assert _read(KERNELS + HOST_SPANS + PROGRAM) == without
     assert without[2] == [("bench.train", pytest.approx(65e-6))]
-    assert P.gaps(KERNELS + BENCH_HOST) == ({}, {})
+    assert P.gaps(KERNELS + HOST_SPANS) == ({}, {})
 
 
 def _span(name, a, b, seconds=None, **attrs):
@@ -125,14 +125,14 @@ def test_readers_on_hand_made_runs():
 @pytest.mark.parametrize("cell, want", [
     ("olmo-1b.retrain", {"update_ms.window", "update_gap_ms.window",
                          "grads_gap_ms.window"}),
-    ("olmo-1b.query", {"queue_wait_ms.p95", "prefill_gap_ms.p95",
-                       "tick_layers_gap_ms.p95"}),
+    ("olmo-1b.query-burst", {"queue_wait_ms.p95", "prefill_gap_ms.p95",
+                             "tick_layers_gap_ms.p95"}),
 ])
 def test_a_traced_smoke_run_reads_the_program_spans(cell, want):
     """On the CPU the stretch has no device work, so the gaps read 0."""
     from repro_torch import tracing
     c = smoke.cell(cell)
-    run = S.traced(c, SEED, 1.0, dev="cpu")
+    run = S.traced(c, SEED, 3.0, dev="cpu")
     assert not tracing.enabled()
     line = S.program_line(c, run)
     assert set(line["metrics"]) == want

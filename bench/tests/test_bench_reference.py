@@ -1,5 +1,6 @@
 """The plain reference agrees with the port at smoke width on the CPU:
-logits of both families in float32, and the first train steps."""
+logits of every configuration with a smoke file in float32, and the first
+train steps."""
 from __future__ import annotations
 
 import copy
@@ -20,10 +21,10 @@ def _cfg(name):
     return smoke.cell(name).config
 
 
-@pytest.mark.parametrize("cell", ["olmo-1b.query", "hymba-1.5b.query"])
-def test_reference_logits_equal_the_port_in_fp32(cell):
+@pytest.mark.parametrize("config", smoke.configs())
+def test_reference_logits_equal_the_port_in_fp32(config):
     from repro_torch.models.model import build_model
-    cfg = _cfg(cell)
+    cfg = smoke.config(config)
     model = build_model(D.model_config(cfg))
     params = W.make(model.spec, 5, torch.device("cpu"))
     toks = torch.as_tensor(np.random.default_rng(1).integers(

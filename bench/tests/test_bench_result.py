@@ -19,7 +19,7 @@ BENCH = os.path.join(ROOT, "bench")
 
 
 def _line(trace: bool):
-    c = smoke.cell("olmo-1b.query")
+    c = smoke.cell("olmo-1b.query-burst")
     r = Run(c.name, c.config, c.traffic, setup_s=2.0, window_s=1.0,
             attempted=3, memory_peak_bytes=123,
             checks=[Check("served_gap", 0.01, 0.1),
@@ -68,7 +68,7 @@ def test_without_cuda_the_run_exits_nonzero_and_prints_no_result():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     p = subprocess.run(
         [sys.executable, os.path.join(BENCH, "run.py"), "--workload",
-         "olmo-1b.query", "--seed", "3000000000", "--seconds", "1",
+         "olmo-1b.query-burst", "--seed", "3000000000", "--seconds", "1",
          "--trace", "0"], capture_output=True, text=True, cwd=ROOT,
         env=env, timeout=300)
     assert p.returncode == 2

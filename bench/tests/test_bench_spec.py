@@ -3,14 +3,18 @@ and metric is found by name, a new one is only new files and entries, and
 every name, unit and limit keeps to the benchmark's contract."""
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 
 import smoke  # noqa: F401  (puts the repository on the path)
+from bench.core import device as D
 from bench.core import spec
 from bench.core.record import Run
 
@@ -128,6 +132,22 @@ def test_each_config_file_is_its_own_and_states_reductions():
             assert k in data.get("reduced_from", {}), (c["name"], k)
 
 
+@pytest.mark.parametrize("name", ["olmo-1b", "olmo-1b-vocab8", "hymba-1.5b"])
+def test_model_config_of_each_file_is_as_it_was(name):
+    """Each sub-configuration built from the port's type hints gives the
+    ModelConfig that naming `ssm` and `global_attn_layers` gave."""
+    from repro_torch.configs.base import ModelConfig, SSMConfig
+    cfg = json.load(open(os.path.join(ROOT, "bench", "configs",
+                                      name + ".json")))
+    kw = {k: v for k, v in cfg.items()
+          if k in {f.name for f in dataclasses.fields(ModelConfig)}}
+    if kw.get("ssm"):
+        kw["ssm"] = SSMConfig(**kw["ssm"])
+    if "global_attn_layers" in kw:
+        kw["global_attn_layers"] = tuple(kw["global_attn_layers"])
+    assert D.model_config(cfg) == ModelConfig(**kw)
+
+
 def test_a_new_cell_is_new_files_and_entries_only(tmp_path):
     """Copy the benchmark, add a configuration, a mix, a cell and a
     metric as new files and new entries, and read them; no file that was
@@ -141,7 +161,7 @@ def test_a_new_cell_is_new_files_and_entries_only(tmp_path):
     cfg = json.load(open(os.path.join(ROOT, "bench/configs/olmo-1b.json")))
     cfg["name"] = "olmo-1b-copy"
     (root / "bench/configs/olmo-1b-copy.json").write_text(json.dumps(cfg))
-    (root / "bench/traffic/stream-query-burst.json").write_text(json.dumps(
+    (root / "bench/traffic/stream-query-new.json").write_text(json.dumps(
         dict(json.load(open(os.path.join(
             ROOT, "bench/traffic/stream-query-open.json"))), rate=3.0,
             prompt_len=512)))
@@ -151,7 +171,7 @@ def test_a_new_cell_is_new_files_and_entries_only(tmp_path):
                                  file="bench/configs/olmo-1b-copy.json"))
     bench["workloads"].append({"name": "olmo-1b-copy.burst",
                                "config": "olmo-1b-copy",
-                               "traffic": "stream-query-burst", "chips": 1,
+                               "traffic": "stream-query-new", "chips": 1,
                                "why": "a test"})
     bench["per_layer"].append({"name": "queries_done.new", "unit": "queries",
                                "better": "higher", "source": "host_clock",
@@ -167,5 +187,145 @@ def test_a_new_cell_is_new_files_and_entries_only(tmp_path):
     run = Run(c.name, c.config, c.traffic, setup_s=1.5, window_s=1.0)
     got = spec.read_metrics(c, run, trace=True)
     assert got["queries_done.new"] == {"value": 0.0, "unit": "queries"}
+    after = {p: p.read_bytes() for p in before}
+    assert after == before
+
+
+# what the new family's files are asked, run inside the copy of the
+# benchmark so that every name resolves to the copy's own files
+NEW_FAMILY_CHECKS = """
+import dataclasses, json, torch
+import smoke
+import stub_ops
+from bench.core import device as D, readings as R, spec, trace as T
+from bench.core import yardstick as Y
+from bench.core.record import Run
+from bench.reference import model as ref
+from repro_torch.configs import smoke_config
+from repro_torch.configs.base import MoEConfig
+
+cfg = smoke.config("moe-test")
+mc = D.model_config(cfg)
+want = dataclasses.replace(smoke_config("qwen3-moe-30b-a3b"), name="moe-test")
+rec = T.Recorder()
+rec.install()
+rec.on = True
+stub_ops.scale(torch.ones(1000))
+rec.on = False
+launches = dict(rec.launches)
+rec.uninstall()
+run = Run("moe-test.query", cfg, {})
+run.peaks = smoke.PEAKS
+run.stretch = T.Stretch(wall_s=1.0, busy_s=1.0, launches=launches,
+                        kernels={"void stub_scale_kernel<float>": (1, 1e-6)})
+c = smoke.cell("moe-test.query")
+try:
+    Y.decode_flops(dict(cfg, family="bare"), [4])
+    bare = None
+except NotImplementedError as e:
+    bare = str(e)
+print(json.dumps({
+    "moe": isinstance(mc.moe, MoEConfig), "config": mc == want,
+    "configs": smoke.configs(), "smoke_cell": [
+        c.config["d_model"], c.traffic["prompt_len"]],
+    "hidden": ref.hidden(cfg, {}, torch.zeros(2, 5, dtype=torch.long)
+                         ).tolist(),
+    "counts": [Y.matmul_params(cfg), Y.forward_flops(cfg, 2, 3),
+               Y.decode_flops(cfg, [4, 5])],
+    "bare": bare,
+    "launches": launches["stub_scale"], "unwrapped": stub_ops.scale(
+        torch.ones(2)).tolist(),
+    "roofline": R.roofline_pct(run, "stub_scale"),
+    "metric": spec.read_metrics(c, run, trace=True),
+}))
+"""
+
+
+def test_a_new_family_is_new_files_and_entries_only(tmp_path):
+    """Copy the benchmark and add a model family as new files and new
+    entries: a configuration with a `moe` sub-configuration (qwen3-moe at
+    the port's smoke sizes), its reference family file with its own counts,
+    a kernel file wrapping a stub op, a roofline metric of one line, a
+    cell, and the smoke files. The port's ModelConfig comes out with a
+    MoEConfig, `ref.hidden` and yardstick's counts call the family's file,
+    a family file without its counts is refused, the Recorder records the
+    stub's launches and `roofline_pct` reads them; no file that was there
+    changes."""
+    from repro_torch.configs import get_config, smoke_config
+    root = tmp_path / "repo"
+    shutil.copytree(os.path.join(ROOT, "bench"), root / "bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in (root / "bench").rglob("*")
+              if p.is_file()}
+    full = dataclasses.asdict(get_config("qwen3-moe-30b-a3b"))
+    tiny = dataclasses.asdict(smoke_config("qwen3-moe-30b-a3b"))
+    files = {
+        "bench/configs/moe-test.json": json.dumps(
+            dict(full, name="moe-test")),
+        "bench/tests/smoke/moe-test.json": json.dumps(
+            {k: v for k, v in tiny.items()
+             if k != "name" and v != full[k]}),
+        "bench/tests/smoke/moe-test.query.json": json.dumps(
+            {"prompt_len": 12, "rate": 5.0}),
+        f"bench/reference/families/{full['family']}.py": (
+            "import torch\n"
+            "def hidden(cfg, params, tokens, quant=None):\n"
+            "    return torch.full((*tokens.shape, cfg['d_model']), 7.0)\n"
+            "def matmul_params(cfg):\n"
+            "    return 13\n"
+            "def forward_flops(cfg, batch, seq, logit_rows=None):\n"
+            "    return 11.0 * batch * seq\n"
+            "def decode_flops(cfg, positions):\n"
+            "    return 3.0 * sum(positions)\n"),
+        "bench/reference/families/bare.py": (
+            "def hidden(cfg, params, tokens, quant=None):\n"
+            "    return tokens\n"),
+        "bench/kernels/stub_scale.py": (
+            "TARGET = 'stub_ops:scale'\n"
+            "DEVICE_NAMES = ('stub_scale_kernel',)\n"
+            "def record(args, kwargs):\n"
+            "    return [args[0].numel(), args[0].element_size()]\n"
+            "def cost(rec, peaks):\n"
+            "    n, size = rec\n"
+            "    return 2 * n * size, n, peaks['fp32']\n"),
+        "bench/metrics/stub_roofline_pct.p95.py": (
+            "from bench.core.readings import roofline; "
+            "read = roofline('stub_scale')\n"),
+        "stub_ops.py": "def scale(x, *, by=2.0):\n    return x * by\n",
+    }
+    for name, text in files.items():
+        (root / name).write_text(text)
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "moe-test", "source": "a test",
+                             "file": "bench/configs/moe-test.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": "moe-test.query", "config": "moe-test",
+                               "traffic": "stream-query-open", "chips": 1,
+                               "why": "a test"})
+    bench["per_layer"].append({"name": "stub_roofline_pct.p95", "unit": "%",
+                               "better": "higher", "source": "device_trace",
+                               "layer": "kernels", "moves": "query_p95_ms",
+                               "workloads": ["moe-test.query"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root), str(root / "bench" / "tests"),
+         os.path.join(ROOT, "src")]))
+    p = subprocess.run([sys.executable, "-c", NEW_FAMILY_CHECKS],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode == 0, p.stderr[-4000:]
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    assert got["moe"] and got["config"]
+    assert "moe-test" in got["configs"]
+    assert got["smoke_cell"] == [tiny["d_model"], 12]
+    assert got["hidden"] == [[[7.0] * tiny["d_model"]] * 5] * 2
+    assert got["counts"] == [13, 66.0, 27.0]
+    assert "defines no decode_flops" in got["bare"]
+    assert got["launches"] == [[1000, 4]] and got["unwrapped"] == [2.0, 2.0]
+    # 8000 bytes over 3.35e12 B/s against 1000 operations over 67e12
+    share = 100.0 * max(8000 / 3.35e12, 1000 / 67e12) / 1e-6
+    assert got["roofline"] == pytest.approx(share)
+    assert got["metric"] == {"stub_roofline_pct.p95": {
+        "value": got["roofline"], "unit": "%"}}
     after = {p: p.read_bytes() for p in before}
     assert after == before
