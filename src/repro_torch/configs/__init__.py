@@ -4,7 +4,9 @@ Each architecture lives in its own module with the exact published
 dimensions; `smoke_config()` returns a reduced same-family variant used by
 CPU tests. The registry is the JAX package's, in its order: the dense,
 MoE, hybrid, xLSTM, encoder and VLM families, with the dry run's
-`SHAPES` and `cell_is_runnable`.
+`SHAPES` and `cell_is_runnable`; `PORT_ARCH_IDS` are the architectures
+the port adds (granite-4.0-h-micro, whose layers are each a Mamba-2 mixer
+or attention).
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401  (re-exported)
-    DENSE, ENCODER, HYBRID, MOE, SSM, VLM, ModelConfig, MoEConfig,
+    DENSE, ENCODER, HYBRID, MAMBA_HYBRID, MOE, SSM, VLM, ModelConfig,
+    MoEConfig,
     SHAPES, SSMConfig, ShapeConfig, TrainConfig)
 
 _ARCH_MODULES: Dict[str, str] = {
@@ -30,17 +33,29 @@ _ARCH_MODULES: Dict[str, str] = {
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 
+# architectures the port serves beyond the JAX package's registry: no JAX
+# twin and no dry-run cell (`launch.dryrun` runs ARCH_IDS)
+_PORT_MODULES: Dict[str, str] = {
+    "granite-4.0-h-micro": "repro_torch.configs.granite_4_0_h_micro",
+}
+
+PORT_ARCH_IDS: List[str] = list(_PORT_MODULES)
+
+
+def _module(arch: str):
+    name = _ARCH_MODULES.get(arch) or _PORT_MODULES.get(arch)
+    if name is None:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{ARCH_IDS + PORT_ARCH_IDS}")
+    return importlib.import_module(name)
+
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
+    return _module(arch).CONFIG
 
 
 def smoke_config(arch: str) -> ModelConfig:
-    if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    return importlib.import_module(_ARCH_MODULES[arch]).smoke_config()
+    return _module(arch).smoke_config()
 
 
 def cell_is_runnable(cfg: ModelConfig, shape_name: str) -> str:

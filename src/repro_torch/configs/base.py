@@ -21,6 +21,8 @@ SSM = "ssm"          # xLSTM-style recurrent
 HYBRID = "hybrid"    # parallel attention + SSM heads (hymba)
 ENCODER = "encoder"  # bidirectional, no decode (hubert)
 VLM = "vlm"          # early-fusion token VLM (chameleon)
+MAMBA_HYBRID = "mamba_hybrid"  # each layer a Mamba-2 mixer or attention,
+                               # by a pattern (granite-4.0-h)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +44,12 @@ class SSMConfig:
     expand: int = 2           # d_inner = expand * d_model
     num_ssm_heads: int = 0    # hymba: number of mamba heads in parallel mix
     slstm_every: int = 2      # xlstm: one sLSTM block per this many blocks
+    head_dim: int = 64        # Mamba heads of this dim over d_inner
+    # Mamba-2: B/C groups shared by the heads. The mixer computes one
+    # (`ssm.mamba2_dims` refuses others); the field holds the benchmark's
+    # configuration file to the published value
+    n_groups: int = 1
+    conv_bias: bool = False   # Mamba-2: a bias on the depthwise conv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +80,19 @@ class ModelConfig:
     # (batch, seq, d_model) instead of token ids
     embedding_frontend: bool = False
     dtype: str = "bfloat16"
+    # mamba_hybrid: the attention layers' indices; every other layer is a
+    # Mamba-2 mixer
+    attn_layers: Tuple[int, ...] = ()
+    # "nope": no positional encoding in attention, whatever rope_theta says
+    position_embedding_type: str = "rope"
+    # muP multipliers (granite-4.0-h), each applied only where it differs
+    # from its default: the embedding's rows, each residual branch, the
+    # attention scores (0 -> 1 / sqrt(head_dim)), and logits divided by
+    # logits_scaling
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
     # -- derived ------------------------------------------------------------
     @property
     def resolved_head_dim(self) -> int:
@@ -101,6 +122,8 @@ class ModelConfig:
             per_layer += (self.num_heads * hd) * d
             di = self.ssm.expand * d
             per_layer += 2 * d * di + di * d + di * (self.ssm.state_dim * 2 + 1)
+        if self.family == MAMBA_HYBRID:     # exact: the final norm too
+            return emb + d + sum(self._layer_params(i) for i in range(L))
         if self.family == SSM:
             # mLSTM/sLSTM projections (approx): qkv + gates + out
             di = self.ssm.expand * d
@@ -114,6 +137,22 @@ class ModelConfig:
             mult = 3 if self.act == "swiglu" else 2
             per_layer += mult * d * self.d_ff
         return emb + L * per_layer
+
+    def _layer_params(self, i: int) -> int:
+        """A mamba_hybrid layer's parameters: its mixer (attention, or the
+        Mamba-2 mixer's in- and out-projections, conv, per-head vectors
+        and gated norm), its two norms and its MLP."""
+        d, s = self.d_model, self.ssm
+        hd = self.resolved_head_dim
+        mult = 3 if self.act == "swiglu" else 2
+        n = mult * d * self.d_ff + 2 * d
+        if i in self.attn_layers:
+            return n + 2 * d * (self.num_heads + self.num_kv_heads) * hd
+        di = s.expand * d
+        heads = di // s.head_dim
+        conv = di + 2 * s.n_groups * s.state_dim
+        return (n + d * (di + conv + heads) + di * d
+                + (s.conv_width + s.conv_bias) * conv + 3 * heads + di)
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: only top_k + shared experts)."""

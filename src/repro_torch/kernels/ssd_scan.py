@@ -16,7 +16,11 @@ the plain version `ref.ssd_chunked` (the CPU tests' path); no CUDA call
 ever falls back to it, and no call under autograd reaches either: with
 grad mode on and an input that requires grad the wrapper raises (the
 kernel has no backward). `ssd_scan.launches` counts calls that launched the
-kernel (one per call, whichever path).
+kernel (one per call, whichever path); while the program's tracer is on,
+`repro_torch.tracing` counts them by path too (`ecco.ssd_scan.cuda_core`,
+`ecco.ssd_scan.tensor_core`), and each launch names its path as the `path`
+attribute of the innermost open span (`ecco.mamba.scan` in the Mamba-2
+mixer).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_chunked
 
@@ -31,6 +36,7 @@ SOURCE = "ssd_scan.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 232448       # csrc/ssd_scan.cu kMaxSmemBytes
 CUDA_CORE, TENSOR_CORE = 0, 1  # csrc/ssd_scan.cu `path`
+PATHS = {CUDA_CORE: "cuda_core", TENSOR_CORE: "tensor_core"}
 MAX_TC_CHUNK = 128             # the tensor-core path's largest chunk tile
 MAX_TC_N = 64                  # its largest state dim
 P_TILE = 64                    # csrc/ssd_scan.cu kPTile
@@ -185,6 +191,8 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     ssd_scan.launches += 1
+    tracing.count("ecco.ssd_scan." + PATHS[path])
+    tracing.annotate(path=PATHS[path])
     return (y, state) if return_state else y
 
 

@@ -2,7 +2,9 @@
 without an affine, RMSNorm, the per-head RMS qk-norm), RoPE, attention
 (full, causal or not, sliding window with an always-visible meta-token
 prefix, decode against a full or ring cache), the SwiGLU and GELU MLPs,
-tied or untied embedding and unembedding.
+tied or untied embedding and unembedding, and granite-4.0-h's muP
+multipliers (`embed`, `scale_queries`, `unembed`), each applied only where
+the config sets it.
 
 Mirrors the JAX package's `models/layers.py` at the same names and
 layouts: activations (B, S, D) or (B, S, H, hd), wq (D, H, hd),
@@ -157,13 +159,23 @@ def _proj(x, w):
 
 def uses_rope(cfg: ModelConfig) -> bool:
     """The JAX package's rule: RoPE only in causal non-encoder models
-    with a rope_theta."""
-    return bool(cfg.rope_theta) and cfg.family != "encoder" and cfg.causal
+    with a rope_theta; and never where the config says "nope"."""
+    return (bool(cfg.rope_theta) and cfg.family != "encoder" and cfg.causal
+            and cfg.position_embedding_type != "nope")
+
+
+def scale_queries(cfg: ModelConfig, q):
+    """q scaled so that attention's 1 / sqrt(head_dim) comes to the
+    config's `attention_multiplier` (muP: 1 / head_dim); q itself, and no
+    op, where the config sets none. At granite's head dim 64 the factor is
+    1/8, exact in any dtype."""
+    m = cfg.attention_multiplier
+    return q * (m * math.sqrt(q.shape[-1])) if m else q
 
 
 def _qkv(cfg: ModelConfig, p, x, positions):
     """The projections, then qk-norm (where the config has it), then
-    RoPE (under `uses_rope`)."""
+    RoPE (under `uses_rope`), then the queries' muP scale."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -173,7 +185,7 @@ def _qkv(cfg: ModelConfig, p, x, positions):
     if uses_rope(cfg):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return scale_queries(cfg, q), k, v
 
 
 def _out_proj(o, wo, dtype):
@@ -456,8 +468,15 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def embedding_spec(cfg: ModelConfig):
+    """The table (and an untied unembedding). Under an embedding multiplier
+    (muP) the table is drawn at 1 / multiplier of the usual scale, so that
+    the multiplied rows enter the residual stream at the scale of every
+    other family's: with random weights a tied table drawn at the usual
+    scale would make each position's own token the greedy answer by ~30
+    standard deviations of the other logits (granite-4.0-h-micro)."""
     V = padded_vocab(cfg)
-    spec = {"table": Spec((V, cfg.d_model), ("vocab", "fsdp"), "embed")}
+    spec = {"table": Spec((V, cfg.d_model), ("vocab", "fsdp"), "embed",
+                          1.0 / cfg.embedding_multiplier)}
     if not cfg.tie_embeddings:
         spec["unembed"] = Spec((cfg.d_model, V), ("fsdp", "vocab"), "embed")
     return spec
@@ -471,11 +490,24 @@ def embed_tokens(p, tokens, dtype):
     return F.embedding(tokens, p["table"].to(dtype))
 
 
+def embed(cfg: ModelConfig, p, tokens, dtype):
+    """The model's input rows for `tokens` (`embed_tokens`), times the
+    config's `embedding_multiplier` where it sets one: every path's
+    embedding (forward, prefill, decode and both fleet ticks)."""
+    x = embed_tokens(p, tokens, dtype)
+    m = cfg.embedding_multiplier
+    return x * m if m != 1.0 else x
+
+
 def unembed(cfg: ModelConfig, p, x):
+    """Logits over the padded vocabulary (the padding masked), divided by
+    the config's `logits_scaling` where it sets one."""
     if cfg.tie_embeddings:
         logits = x @ p["table"].to(x.dtype).T
     else:
         logits = x @ p["unembed"].to(x.dtype)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     V = padded_vocab(cfg)
     if V != cfg.vocab_size:   # mask padded vocab entries
         pad_mask = torch.arange(V, device=x.device) >= cfg.vocab_size

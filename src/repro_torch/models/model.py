@@ -101,15 +101,17 @@ class Model:
                    device="cuda"):
         """A fresh decode cache as in the JAX package's: a "neg_inf" leaf
         (the xLSTM stabilisers m) fp32 filled with -inf, every other leaf
-        zeros in `dtype` (the Mamba state and the xLSTM C, n, h, c
-        included), bf16 by default whatever the compute dtype."""
+        zeros in `dtype` (hymba's Mamba state and the xLSTM C, n, h, c
+        included), bf16 by default whatever the compute dtype, but for a
+        "zeros_fp32" leaf (the Mamba-2 mixers' state), zeros in fp32."""
         dev = resolve_device(device)
 
         def leaf(s):
             if s.init == "neg_inf":
                 return torch.full(s.shape, -math.inf, dtype=torch.float32,
                                   device=dev)
-            return torch.zeros(s.shape, dtype=dtype, device=dev)
+            return torch.zeros(s.shape, device=dev, dtype=(
+                torch.float32 if s.init == "zeros_fp32" else dtype))
 
         return P.tree_map(leaf, self.cache_spec(batch, cap))
 

@@ -32,6 +32,7 @@ class Spec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]   # logical axis name per dim (or None)
     init: str = "normal"              # normal | zeros | ones | neg_inf | embed
+                                      # (a cache's: zeros_fp32)
     scale: float = 1.0                # fan-in style scale multiplier
 
     def __post_init__(self):

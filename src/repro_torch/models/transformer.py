@@ -15,7 +15,12 @@ ignores the position. A MoE block replaces the MLP with `models/moe.py`'s
 dense dispatch and sums its load-balance loss over the layers into `aux`;
 an encoder (hubert) attends without a causal mask and without RoPE and,
 like any config with `embedding_frontend`, takes float frame embeddings
-(B, S, d_model) for tokens.
+(B, S, d_model) for tokens. The mamba_hybrid family (granite-4.0-h) makes
+each layer one kind, by its `attn_layers`: an attention block, or a
+Mamba-2 layer (`mamba2_layer`: `ssm.apply_mamba2` then the MLP), one
+segment per run of a kind; its muP multipliers scale the embedding, each
+residual branch (`_residual`), the attention scores and the logits, each
+only where the config sets it.
 
 Distribution's model half, as in the reference: `build_spec(ep=, tp=)`
 pads the experts to a multiple of `ep` and the query heads per KV group
@@ -43,7 +48,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
-from repro_torch.configs.base import HYBRID, MOE, SSM, ModelConfig
+from repro_torch.configs.base import (HYBRID, MAMBA_HYBRID, MOE, SSM,
+                                      ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -68,7 +74,7 @@ def check_ported(*, moe_impl: str = "dense", ssm_impl: str = "gspmd"):
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str          # "block" | "mlstm" | "slstm"
+    kind: str          # "block" | "mlstm" | "slstm" | "mamba2"
     count: int
     window: int = 0    # 0 = full attention (block kind only)
 
@@ -77,8 +83,19 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
     """The xLSTM family: a repeating unit of (slstm_every - 1) mLSTM blocks
     then one sLSTM block (xlstm-350m: mLSTM x1, sLSTM x1, twelve times), or
     mLSTM blocks only when slstm_every does not divide the depth. The
-    attention families: consecutive layers grouped by attention window
+    mamba_hybrid family: consecutive layers grouped by kind (granite-4.0-h
+    at 20 layers: mamba2 x5, block x1, mamba2 x9, block x1, mamba2 x4).
+    The attention families: consecutive layers grouped by attention window
     (hymba: global x1, window x14, global x1, window x15, global x1)."""
+    if cfg.family == MAMBA_HYBRID:
+        segs: List[Segment] = []
+        for i in range(cfg.num_layers):
+            kind = "block" if i in cfg.attn_layers else "mamba2"
+            if segs and segs[-1].kind == kind:
+                segs[-1] = Segment(kind, segs[-1].count + 1)
+            else:
+                segs.append(Segment(kind, 1))
+        return segs
     if cfg.family == SSM:
         e = cfg.ssm.slstm_every
         if e > 0 and cfg.num_layers % e == 0:
@@ -143,6 +160,9 @@ def _segment_spec(cfg: ModelConfig, kind: str, ep: int = 1, tp: int = 1):
         return xlstm_lib.mlstm_block_spec(cfg)
     if kind == "slstm":
         return xlstm_lib.slstm_block_spec(cfg)
+    if kind == "mamba2":
+        return {"ln1": L.norm_spec(cfg), "mamba": ssm_lib.mamba2_spec(cfg),
+                "ln2": L.norm_spec(cfg), "mlp": L.mlp_spec(cfg)}
     return _block_spec(cfg, ep, tp)
 
 
@@ -156,7 +176,9 @@ def cache_spec(cfg: ModelConfig, batch: int, cap: int):
     An mLSTM segment: C (layers, batch, H, P, P), n (layers, batch, H, P),
     m (layers, batch, H) "neg_inf", conv (layers, batch, W-1, di); an sLSTM
     segment: h, c, n, m (layers, batch, H, P), m "neg_inf", conv (layers,
-    batch, W-1, D). `cap` does not enter the recurrent caches."""
+    batch, W-1, D); a Mamba-2 segment: conv (layers, batch, W-1, conv
+    channels), state (layers, batch, H, P, N) "zeros_fp32", kept in fp32
+    whatever the pool's dtype. `cap` does not enter the recurrent caches."""
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     meta = cfg.meta_tokens
     segs = []
@@ -186,6 +208,13 @@ def cache_spec(cfg: ModelConfig, batch: int, cap: int):
 
 def _recurrent_cache_spec(cfg: ModelConfig, kind: str, n: int, batch: int):
     W = cfg.ssm.conv_width
+    if kind == "mamba2":
+        _, H, P, N, conv = ssm_lib.mamba2_dims(cfg)
+        return {"conv": Spec((n, batch, W - 1, conv),
+                             ("layers", "batch", None, "mlp"), "zeros"),
+                "state": Spec((n, batch, H, P, N),
+                              ("layers", "batch", None, "mlp", None),
+                              "zeros_fp32")}
     if kind == "mlstm":
         di, H, P = xlstm_lib.mlstm_heads(cfg)
         lbh = ("layers", "batch", "heads")
@@ -236,11 +265,18 @@ def _rms(x, eps: float = 1e-6):
             ).to(x.dtype)
 
 
+def _residual(cfg: ModelConfig, x, y):
+    """x plus a residual branch y, times the config's muP
+    `residual_multiplier` where it sets one (one fused add)."""
+    m = cfg.residual_multiplier
+    return x + y if m == 1.0 else torch.add(x, y, alpha=m)
+
+
 def _mix(cfg: ModelConfig, p, x, attn_out, ssm_out):
     """Residual update of a block: attention alone, or (hybrid) the mean
     of the RMS-normed attention and Mamba outputs, each scaled."""
     if cfg.family != HYBRID:
-        return x + attn_out
+        return _residual(cfg, x, attn_out)
     na = _rms(attn_out) * p["mix_a"].to(x.dtype)
     ns = _rms(ssm_out) * p["mix_s"].to(x.dtype)
     return x + 0.5 * (na + ns)
@@ -322,7 +358,7 @@ def _block_forward(cfg: ModelConfig, p, x, positions, *, window: int,
     x = _mix(cfg, p, x, attn_out, ssm_out)
     y, aux = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x), capacity_factor,
                   moe_impl, mesh)
-    return ctx(x + y, "batch", None, None), cache, aux
+    return ctx(_residual(cfg, x, y), "batch", None, None), cache, aux
 
 
 def _block_decode(cfg: ModelConfig, p, x, cache, pos, *, window: int,
@@ -339,7 +375,29 @@ def _block_decode(cfg: ModelConfig, p, x, cache, pos, *, window: int,
     x = _mix(cfg, p, x, attn_out, ssm_out)
     y, _ = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x), capacity_factor,
                 moe_impl, mesh)
-    return x + y
+    return _residual(cfg, x, y)
+
+
+def mamba2_layer(cfg: ModelConfig, p, x, *, cache=None,
+                 collect_cache: bool = False, kernel_impl: str = "auto"):
+    """A Mamba-2 layer: x + the mixer of its norm, then + the MLP of its
+    norm, each branch through `_residual`. With `cache` ({"conv",
+    "state"} of one layer) one decode step of x (B,1,D), its rows written
+    in place; else the full sequence, with `collect_cache` also returning
+    the decode cache. Returns (x, cache | None)."""
+    h = L.apply_norm(cfg, p["ln1"], x)
+    c = None
+    if cache is not None:
+        y, _ = ssm_lib.apply_mamba2_step(cfg, p["mamba"], h, cache)
+    elif collect_cache:
+        y, c = ssm_lib.apply_mamba2(cfg, p["mamba"], h, return_cache=True,
+                                    kernel_impl=kernel_impl)
+    else:
+        y = ssm_lib.apply_mamba2(cfg, p["mamba"], h,
+                                 kernel_impl=kernel_impl)
+    x = _residual(cfg, x, y)
+    h2 = L.apply_norm(cfg, p["ln2"], x)
+    return _residual(cfg, x, L.apply_mlp(cfg, p["mlp"], h2)), c
 
 
 # ---------------------------------------------------------------------------
@@ -369,6 +427,9 @@ def _layer_forward(cfg: ModelConfig, seg: Segment, lp, x, *, positions,
                                            kernel_impl=kernel_impl) + (None,)
     if seg.kind == "slstm":
         return xlstm_lib.apply_slstm_block(cfg, lp, x) + (None,)
+    if seg.kind == "mamba2":
+        return mamba2_layer(cfg, lp, x, collect_cache=collect_cache,
+                            kernel_impl=kernel_impl) + (None,)
     return _block_forward(cfg, lp, x, positions, window=seg.window,
                           collect_cache=collect_cache,
                           kernel_impl=kernel_impl,
@@ -412,11 +473,11 @@ def _remat_wrap(body, remat: str):
 # Public model functions
 # ---------------------------------------------------------------------------
 def _embed(cfg: ModelConfig, params, inputs, compute_dtype):
-    """Token ids (B,S) through the table, or (embedding frontend) float
-    embeddings (B,S,D) cast to the compute dtype."""
+    """Token ids (B,S) through the table (`layers.embed`), or (embedding
+    frontend) float embeddings (B,S,D) cast to the compute dtype."""
     if cfg.embedding_frontend:
         return inputs.to(compute_dtype)
-    return L.embed_tokens(params["embed"], inputs, compute_dtype)
+    return L.embed(cfg, params["embed"], inputs, compute_dtype)
 
 
 def forward(cfg: ModelConfig, params, inputs, *,
@@ -435,7 +496,7 @@ def forward(cfg: ModelConfig, params, inputs, *,
     caches (attention families only: the xLSTM prefill builds
     its recurrent cache in `_prefill_recurrent`) a list per segment of
     {"k","v": (n,B,S+meta,K,hd)} [+ "mamba": {"conv","state"} stacked over
-    the segment's layers]."""
+    the segment's layers], or for a Mamba-2 segment {"conv","state"}."""
     x = _embed(cfg, params, inputs, compute_dtype)
     B = x.shape[0]
     meta = cfg.meta_tokens
@@ -484,7 +545,8 @@ def prefill(cfg: ModelConfig, params, inputs, cap: int, *,
     `cap` (absolute positions, meta tokens included). K/V go to the cache
     in `cache_dtype`; the Mamba cache keeps its conv rows in the compute
     dtype and its state in fp32, as in the JAX package (the serving pool
-    casts every leaf on write). Returns (last_logits (B,V), cache_tree,
+    casts every leaf on write); a Mamba-2 segment's cache is its layers'
+    conv rows and fp32 states. Returns (last_logits (B,V), cache_tree,
     next_pos = S + meta). The xLSTM family goes to `_prefill_recurrent`."""
     if cfg.family == SSM:
         return _prefill_recurrent(cfg, params, inputs,
@@ -500,6 +562,9 @@ def prefill(cfg: ModelConfig, params, inputs, cap: int, *,
     S_tot = inputs.shape[1] + cfg.meta_tokens
     segs = []
     for seg, kv in zip(layer_plan(cfg), kv_caches):
+        if seg.kind == "mamba2":                  # {"conv", "state"}
+            segs.append(kv)
+            continue
         k, v = kv["k"], kv["v"]                   # (n, B, S_tot, K, hd)
         if seg.window == 0:
             n = min(S_tot, cap)
@@ -543,7 +608,7 @@ def _prefill_recurrent(cfg: ModelConfig, params, inputs, *, compute_dtype,
     `ssm_impl="seqpar"` and a mesh the mLSTM blocks run sequence-parallel
     over its model axis. Returns (last_logits (B,V), cache_tree,
     next_pos = S)."""
-    x = L.embed_tokens(params["embed"], inputs, compute_dtype)
+    x = L.embed(cfg, params["embed"], inputs, compute_dtype)
     seqpar = ssm_impl == "seqpar" and mesh is not None
     segs = []
     for seg, segp in zip(layer_plan(cfg), params["segments"]):
@@ -581,7 +646,7 @@ def decode_step(cfg: ModelConfig, params, token, cache, pos, *,
     Returns (logits (B,1,V), cache)."""
     if cfg.embedding_frontend:
         raise ValueError("encoder-only arch has no decode step")
-    x = ctx(L.embed_tokens(params["embed"], token, compute_dtype),
+    x = ctx(L.embed(cfg, params["embed"], token, compute_dtype),
             "batch", None, None)
     for seg, segp, segc in zip(layer_plan(cfg), params["segments"],
                                cache["segments"]):
@@ -591,6 +656,8 @@ def decode_step(cfg: ModelConfig, params, token, cache, pos, *,
                 x, _ = xlstm_lib.apply_mlstm_block(cfg, lp, x, cache=lc)
             elif seg.kind == "slstm":
                 x, _ = xlstm_lib.apply_slstm_block(cfg, lp, x, cache=lc)
+            elif seg.kind == "mamba2":
+                x, _ = mamba2_layer(cfg, lp, x, cache=lc)
             else:
                 x = _block_decode(cfg, lp, x, lc, pos, window=seg.window,
                                   kernel_impl=kernel_impl,

@@ -14,8 +14,9 @@ states and conv rows) into the pool in place: a tick whose slots form a
 contiguous range decodes on a view of the pool, and only a scattered set
 of slots is gathered and written back. Each leaf keeps the dtype
 `Model.init_cache` gave it, as the JAX pool casts on write: the pool's
-dtype (bf16 by default) for K/V, the Mamba state and the xLSTM C, n, h, c
-and conv rows, fp32 for the xLSTM stabilisers m.
+dtype (bf16 by default) for K/V, hymba's Mamba state and the xLSTM C, n,
+h, c and conv rows, fp32 for the xLSTM stabilisers m and the Mamba-2
+mixers' states (granite-4.0-h), whose conv rows take the pool's dtype.
 """
 from __future__ import annotations
 

@@ -91,15 +91,20 @@ def make_fleet_decode_step(model: Model, *, compute_dtype=torch.bfloat16):
     the whole pool, each row with its own key length
     (`layers.decode_attend`), and the weights are read in one of two
     layouts, chosen from the model's layer plan (`pool_wide`):
-      * pool-wide (every segment a global-attention block, the family
-        neither MoE nor hybrid: olmo and the registry's other dense
-        attention families): every row of the pool decodes, in slot order,
+      * pool-wide (every segment a global-attention block or Mamba-2
+        mixers, the family neither MoE nor hybrid: olmo, the registry's
+        other dense attention families, and granite-4.0-h's mamba_hybrid
+        family): every row of the pool decodes, in slot order,
         whether or not a lane holds it. Each group of `groups` runs its
         norms, projections, out-projection, MLP and head over all N rows,
         and each row takes its own group's result through `torch.where` on
         its params row, so another group's values never enter it, finite or
         not. A row without a lane has key length 0 and writes its K/V into
-        its own free row. At decode a group's GEMM over N <= 64 rows is
+        its own free row. A Mamba-2 layer steps every row's state once,
+        each row with its own group's A and D, after each group's
+        in-projection and conv over all rows; a row without a lane steps
+        its free row's state, which its next prefill overwrites. At decode
+        a group's GEMM over N <= 64 rows is
         bound by reading the group's weights once, so the rows of the other
         groups cost about nothing; in exchange every shape is fixed by the
         pool and the groups, and on the card the step is captured as CUDA
@@ -121,10 +126,12 @@ def make_fleet_decode_step(model: Model, *, compute_dtype=torch.bfloat16):
 
 def pool_wide(cfg) -> bool:
     """Whether the fleet step decodes the whole pool in slot order (every
-    segment a global-attention block, the family neither MoE nor hybrid)
-    rather than grouping the lanes by params row."""
+    segment a global-attention block or Mamba-2 mixers, the family neither
+    MoE nor hybrid; so never for the xLSTM family, whose recurrent blocks
+    step per group) rather than grouping the lanes by params row."""
     return cfg.family not in (MOE, HYBRID) and all(
-        seg.kind == "block" and seg.window <= 0 for seg in T.layer_plan(cfg))
+        (seg.kind == "block" and seg.window <= 0) or seg.kind == "mamba2"
+        for seg in T.layer_plan(cfg))
 
 
 class FleetDecodeStep:
@@ -243,13 +250,13 @@ class _Pool:
 
 def _pool_params(model, params_stack, groups, cache):
     """Each group's params tree (views of its row), and per layer in plan
-    order (each group's layer params, the layer's cache)."""
+    order (its kind, each group's layer params, the layer's cache)."""
     gps = [tree_map(lambda t, r=r: t[r], params_stack) for r in groups]
     layers = []
     for si, seg in enumerate(T.layer_plan(model.cfg)):
         lps = [T._layers(gp["segments"][si], seg.count) for gp in gps]
         for li in range(seg.count):
-            layers.append(([lp[li] for lp in lps],
+            layers.append((seg.kind, [lp[li] for lp in lps],
                            T._layer(cache["segments"][si], li)))
     return gps, layers
 
@@ -264,7 +271,7 @@ def _norms(cfg, ps, x):
 
 def _pool_embed(cfg, s, gps, dtype):
     s.masks = [s.rows == g for g in s.groups[1:]]
-    s.x = s.select([L.embed_tokens(gp["embed"], s.tok[:, None], dtype)
+    s.x = s.select([L.embed(cfg, gp["embed"], s.tok[:, None], dtype)
                     for gp in gps])
 
 
@@ -283,7 +290,7 @@ def _pool_pre(cfg, s, lps):
     if L.uses_rope(cfg):
         q = L.apply_rope(q, s.pos[:, None], cfg.rope_theta)
         k = L.apply_rope(k, s.pos[:, None], cfg.rope_theta)
-    s.qkv = (q, k, v)
+    s.qkv = (L.scale_queries(cfg, q), k, v)
 
 
 def _pool_attend(qkv, lc, ln):
@@ -297,11 +304,65 @@ def _pool_post(cfg, s, lps):
     """A layer after its attention: each group's out-projection and MLP,
     each row's own, added to the residual stream."""
     o = L._mask_heads(cfg, s.o)
-    x = s.x + s.select([L._out_proj(o, lp["attn"]["wo"], s.x.dtype)
-                        for lp in lps])
+    _pool_mlp(cfg, s, lps, T._residual(cfg, s.x, s.select([
+        L._out_proj(o, lp["attn"]["wo"], s.x.dtype) for lp in lps])))
+
+
+def _pool_mlp(cfg, s, lps, x):
+    """x plus each group's MLP of its norm, each row's own, as the
+    residual stream."""
     hs = _norms(cfg, [lp["ln2"] for lp in lps], x)
-    s.x = x + s.select([L.apply_mlp(cfg, lp["mlp"], h)
-                        for lp, h in zip(lps, hs)])
+    s.x = T._residual(cfg, x, s.select([L.apply_mlp(cfg, lp["mlp"], h)
+                                        for lp, h in zip(lps, hs)]))
+
+
+def _pool_mamba2(cfg, s, lps, lc):
+    """A Mamba-2 layer over every row, under the span `ecco.tick.mamba`:
+    each group's norm, in-projection and conv, each row's own; one state
+    step with each row's own A and D, its conv rows and state written in
+    place; each group's gated norm, out-projection and MLP, each row's
+    own (`ssm.apply_mamba2_step` and `transformer.mamba2_layer` per
+    row)."""
+    with tracing.span("ecco.tick.mamba"):
+        hs = _norms(cfg, [lp["ln1"] for lp in lps], s.x)
+        ins = [ssm_lib._mamba2_in(cfg, lp["mamba"], h, lc["conv"])
+               for lp, h in zip(lps, hs)]
+        z, xs, Bm, Cm, dt, conv = (s.select([t[i] for t in ins])
+                                   for i in range(6))
+        rows = s.x.shape[0]
+        A = s.select([-torch.exp(lp["mamba"]["A_log"].float()).expand(
+            rows, -1) for lp in lps])
+        D = s.select([lp["mamba"]["D"].expand(rows, -1) for lp in lps])
+        y, state = ssm_lib.ssd_step(xs[:, 0], dt[:, 0], A, Bm[:, 0],
+                                    Cm[:, 0], D, lc["state"])
+        lc["conv"].copy_(conv)
+        lc["state"].copy_(state)
+        y = y.flatten(-2)[:, None]
+        x = T._residual(cfg, s.x, s.select([
+            ssm_lib._mamba2_out(lp["mamba"], y, z) for lp in lps]))
+    _pool_mlp(cfg, s, lps, x)
+
+
+def _pool_pieces(cfg, s, gps, layers, compute_dtype):
+    """The tick as the pieces between its attention calls, and each global
+    layer's cache: a piece runs up to the next global layer's projections
+    (`_pool_pre`), that layer's attention runs between two pieces, and the
+    next piece starts with its out-projection (`_pool_post`); Mamba-2
+    layers lie inside the pieces, the embedding in the first, the head in
+    the last."""
+    pieces, caches = [], []
+    steps = [lambda: _pool_embed(cfg, s, gps, compute_dtype)]
+    for kind, lps, lc in layers:
+        if kind == "mamba2":
+            steps.append(lambda lps=lps, lc=lc: _pool_mamba2(cfg, s, lps, lc))
+            continue
+        steps.append(lambda lps=lps: _pool_pre(cfg, s, lps))
+        pieces.append(steps)
+        caches.append(lc)
+        steps = [lambda lps=lps: _pool_post(cfg, s, lps)]
+    steps.append(lambda: _pool_head(cfg, s, gps))
+    pieces.append(steps)
+    return [lambda st=st: [f() for f in st] for st in pieces], caches
 
 
 def _pool_head(cfg, s, gps):
@@ -324,22 +385,22 @@ def _pool_eager(model, params_stack, groups, cache, up, compute_dtype):
     s = _Pool(up[:3], groups)
     ln = _pool_lanes(s, up)
     gps, layers = _pool_params(model, params_stack, groups, cache)
-    _pool_embed(cfg, s, gps, compute_dtype)
+    pieces, caches = _pool_pieces(cfg, s, gps, layers, compute_dtype)
     with tracing.span("ecco.tick.layers"):
-        for lps, lc in layers:
-            _pool_pre(cfg, s, lps)
+        for piece, lc in zip(pieces, caches):
+            piece()
             s.o = _pool_attend(s.qkv, lc, ln)
-            _pool_post(cfg, s, lps)
-    _pool_head(cfg, s, gps)
+        pieces[-1]()
     return s
 
 
 class _PoolGraphs:
-    """The pool-wide step for one key as CUDA graphs, one between two
-    attention calls: the embedding and layer 0 up to its attention; layer
-    l - 1's out-projection and MLP with layer l up to its attention; the
-    last MLP, the final norm, the unembedding and the argmax. All share one
-    memory pool, and read the tick's inputs from one static buffer.
+    """The pool-wide step for one key as CUDA graphs, one a piece between
+    two attention calls (`_pool_pieces`): the embedding and the layers up
+    to the first global layer's attention; a global layer's out-projection
+    and MLP with the layers up to the next one's attention; the last, the
+    final norm, the unembedding and the argmax. All share one memory pool,
+    and read the tick's inputs from one static buffer.
 
     The K/V writes and the attention run between the replays, eagerly
     (`layers.decode_attend`): the kernel's launches stay visible to its
@@ -355,14 +416,8 @@ class _PoolGraphs:
         s = self.s = _Pool(torch.zeros((3, leaf.shape[1]), dtype=torch.int64,
                                        device=leaf.device), groups)
         gps, layers = _pool_params(model, params_stack, groups, cache)
-        self.caches = [lc for _, lc in layers]
-        pieces = [lambda: (_pool_embed(cfg, s, gps, compute_dtype),
-                           _pool_pre(cfg, s, layers[0][0]))]
-        pieces += [lambda a=a, b=b: (_pool_post(cfg, s, a[0]),
-                                     _pool_pre(cfg, s, b[0]))
-                   for a, b in zip(layers, layers[1:])]
-        pieces.append(lambda: (_pool_post(cfg, s, layers[-1][0]),
-                               _pool_head(cfg, s, gps)))
+        pieces, self.caches = _pool_pieces(cfg, s, gps, layers,
+                                           compute_dtype)
         pool = torch.cuda.graph_pool_handle()
         self.graphs, self.qkvs = [], []
         for piece in pieces:
@@ -373,10 +428,10 @@ class _PoolGraphs:
             finally:
                 g.capture_end()
             self.graphs.append(g)
-            if len(self.qkvs) < len(layers):
+            if len(self.qkvs) < len(self.caches):
                 self.qkvs.append(s.qkv)
-            if s.o is None:
-                s.o = torch.empty_like(s.qkv[0])
+                if s.o is None:
+                    s.o = torch.empty_like(s.qkv[0])
 
     def serves(self, groups, params_stack, cache) -> bool:
         g, p, c = self.key
@@ -480,7 +535,7 @@ def _grouped_logits(model: Model, params_stack, rows, tokens, cache, pos,
     layer_params = [[T._layers(gp["segments"][i], seg.count)
                      for i, seg in enumerate(plan)] for gp in group_params]
 
-    x = _cat([L.embed_tokens(gp["embed"], tok[a:b, None], compute_dtype)
+    x = _cat([L.embed(cfg, gp["embed"], tok[a:b, None], compute_dtype)
               for gp, (_, a, b) in zip(group_params, spans)])
     with tracing.span("ecco.tick.layers"):
         for si, seg in enumerate(plan):
@@ -522,7 +577,8 @@ def _fleet_block(cfg, lps, spans, sel, x, lc, ln, *, window):
         pos = ln.pos[:, None]
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k = L.apply_rope(k, pos, cfg.rope_theta)
-    o = L.decode_attend(q, k, v, lc, ln, window=window, meta=cfg.meta_tokens)
+    o = L.decode_attend(L.scale_queries(cfg, q), k, v, lc, ln,
+                        window=window, meta=cfg.meta_tokens)
     outs = []
     for lp, h, s, (_, a, b) in zip(lps, hs, sel, spans):
         xg = x[a:b]
@@ -535,9 +591,9 @@ def _fleet_block(cfg, lps, spans, sel, x, lc, ln, *, window):
             write_back()
         xg = T._mix(cfg, lp, xg, attn_out, ssm_out)
         h2 = L.apply_norm(cfg, lp["ln2"], xg)
-        outs.append(xg + (moe_lib.apply_moe_dropless(cfg, lp["moe"], h2)
-                          if cfg.family == MOE
-                          else L.apply_mlp(cfg, lp["mlp"], h2)))
+        outs.append(T._residual(cfg, xg, (
+            moe_lib.apply_moe_dropless(cfg, lp["moe"], h2)
+            if cfg.family == MOE else L.apply_mlp(cfg, lp["mlp"], h2))))
     return _cat(outs)
 
 

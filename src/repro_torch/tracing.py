@@ -19,7 +19,9 @@ is not initialised it falls back to the host clock. `begin` / `end` record
 a span that opens in one call and closes in another, keyed by a request
 id (a query's wait in the queue): they enter no `record_function`, since
 the host is not inside them. `annotate` adds attributes to the innermost
-open span, for what is known only inside it.
+open span, for what is known only inside it. `count(name)` adds one to a
+named counter (a kernel's launches by path) while tracing is on;
+`counters()` returns them and clears them.
 
 Spans stay in memory until `collect()` returns and clears them. The record
 is one per process, as the profiler is; the port drives it from one
@@ -27,6 +29,7 @@ thread.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import time
 from typing import Dict, List, NamedTuple, Optional
@@ -61,6 +64,7 @@ _ids = itertools.count(1)
 _stack: List["_Live"] = []              # the open spans, innermost last
 _done: list = []                        # (Span fields, CUDA events or None)
 _open: Dict[tuple, tuple] = {}          # (name, key) -> (start, attrs)
+_counts: Dict[str, int] = collections.Counter()
 
 
 def enable():
@@ -143,6 +147,19 @@ def end(name: str, key, **attrs):
         t0, a = got
         _done.append(((name, next(_ids), None, t0, time.perf_counter()),
                       None, {"key": key, **a, **attrs}))
+
+
+def count(name: str, n: int = 1):
+    """Adds `n` to the counter `name` while tracing is on."""
+    if _on:
+        _counts[name] += n
+
+
+def counters() -> Dict[str, int]:
+    """The counters since the last call, and clears them."""
+    out = dict(_counts)
+    _counts.clear()
+    return out
 
 
 def collect() -> List[Span]:

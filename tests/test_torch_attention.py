@@ -108,9 +108,13 @@ def test_decode_prefix_matches_masked_full_capacity(pos):
 
     from repro.configs import smoke_config
     from repro.models import layers as jL
+    from config_parity import reference_fields
+    from repro_torch.configs import smoke_config as torch_smoke_config
     from repro_torch.models import layers as tL
 
     cfg = dataclasses.replace(smoke_config("olmo-1b"), num_kv_heads=2)
+    tcfg = dataclasses.replace(torch_smoke_config("olmo-1b"), num_kv_heads=2)
+    assert reference_fields(tcfg, cfg) == dataclasses.asdict(cfg)
     B, cap, D = 3, 24, cfg.d_model
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     rng = np.random.default_rng(pos)
@@ -127,7 +131,7 @@ def test_decode_prefix_matches_masked_full_capacity(pos):
         meta=0)
     tcache = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
     tout, tcache = tL.attention_decode(
-        cfg, {k: torch.from_numpy(v) for k, v in p.items()},
+        tcfg, {k: torch.from_numpy(v) for k, v in p.items()},
         torch.from_numpy(x), tcache, pos, window=0, meta=0)
     np.testing.assert_allclose(tout.numpy(), _np(jout), **TOL["float32"])
     for k in ("k", "v"):

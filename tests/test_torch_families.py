@@ -18,6 +18,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+from config_parity import reference_fields
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -104,10 +105,10 @@ def test_registry_equals_the_reference():
     field for field; `build_model` builds every arch's spec."""
     assert ARCH_IDS == JAX_ARCH_IDS
     for arch in ARCH_IDS:
-        assert dataclasses.asdict(get_config(arch)) == \
-            dataclasses.asdict(jax_get_config(arch)), arch
-        assert dataclasses.asdict(smoke_config(arch)) == \
-            dataclasses.asdict(jax_smoke_config(arch)), arch
+        for get, jget in ((get_config, jax_get_config),
+                          (smoke_config, jax_smoke_config)):
+            assert reference_fields(get(arch), jget(arch)) == \
+                dataclasses.asdict(jget(arch)), arch
         full = build_model(get_config(arch))
         assert full.num_params() == \
             jax_build_model(jax_get_config(arch)).num_params(), arch

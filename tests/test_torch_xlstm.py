@@ -18,6 +18,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+from config_parity import reference_fields
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -96,7 +97,7 @@ def test_configs_and_layer_plan_match_jax():
     for get, jget in ((get_config, jax_get_config),
                       (smoke_config, jax_smoke_config)):
         cfg, jcfg = get(ARCH), jget(ARCH)
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        assert reference_fields(cfg, jcfg) == dataclasses.asdict(jcfg)
         assert [(s.kind, s.count, s.window) for s in tT.layer_plan(cfg)] == \
             [(s.kind, s.count, s.window) for s in jax_layer_plan(jcfg)]
     full = get_config(ARCH)
